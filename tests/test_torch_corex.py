@@ -1,0 +1,223 @@
+"""The PyTorch port's `Corex` against the JAX package's `Corex` and the
+float64 oracle.
+
+Float64 fits from the same explicit W0 must be step-matched: identical
+iterations per anneal stage, identical clusters, and TC and W within 1e-8
+— the gap the JAX path itself shows against the oracle. Float32 fits are
+held to `tests/test_parity.py`'s float32 bars (same clusters, TC within
+1e-3 relative). Data are made with numpy from a seed; the port runs on
+`device="cpu"`.
+"""
+
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import linearcorex_tpu as lc
+import linearcorex_tpu_torch as lct
+from linearcorex_tpu.config import CorexConfig as JaxConfig
+from linearcorex_tpu.oracle import OracleCorex
+from linearcorex_tpu.utils.checkpoint import save_corex
+from linearcorex_tpu_torch.config import CorexConfig
+from linearcorex_tpu_torch.models.corex import resolve_config
+from tests.conftest import block_data
+
+TOL64 = 1e-8
+
+
+def _shared_init(m, p, seed=42):
+    return np.random.RandomState(seed).normal(scale=1.0 / np.sqrt(p),
+                                              size=(m, p))
+
+
+@pytest.fixture(scope="module")
+def data():
+    return block_data(n=1000, p=64, m=8, seed=0)
+
+
+@pytest.mark.parametrize("strategy", ["samples", "gram"])
+@pytest.mark.parametrize("optimizer",
+                         ["momentum", "fixed_point", "gd", "auto"])
+def test_f64_fit_step_matched(strategy, optimizer, data):
+    """Same W0 → the same iterations per stage, clusters, TC and W as the
+    JAX package and as the float64 oracle."""
+    w0 = _shared_init(8, 64)
+    kw = dict(n_hidden=8, optimizer=optimizer)
+    if optimizer == "gd":
+        kw["max_iter"] = 300      # plain GD converges slowly; cap stages
+    c = lct.Corex(dtype="float64", moment_strategy=strategy, device="cpu",
+                  **kw).fit(data, init_ws=w0)
+    j = lc.Corex(dtype="float64", moment_strategy=strategy, **kw).fit(
+        data, init_ws=w0)
+    o = OracleCorex(**kw).fit(data, init_ws=w0)
+    iters = c.diagnostics.iters_per_stage.tolist()
+    assert iters == np.asarray(j.diagnostics.iters_per_stage).tolist()
+    assert iters == o.history["iters_per_stage"]
+    assert c.resolved_optimizer_ == j.resolved_optimizer_
+    assert c.n_iter_ == j.n_iter_ == sum(iters)
+    for ref_tc, ref_ws, ref_cl in ((j.tc, np.asarray(j.ws),
+                                    np.asarray(j.clusters)),
+                                   (o.tc, o.ws, o.clusters)):
+        assert abs(c.tc - ref_tc) < TOL64
+        assert np.abs(c.ws.numpy() - ref_ws).max() < TOL64
+        assert np.array_equal(c.clusters.numpy(), ref_cl)
+    assert np.abs(c.tcs.numpy() - o.tcs).max() < TOL64
+    assert np.abs(c.mis.numpy() - o.mis).max() < TOL64
+    # the per-iteration TC trajectory, to 1e-8 of its magnitude
+    h, hj = c.history, j.history
+    assert np.allclose(h["TC"], hj["TC"], rtol=TOL64 / 10, atol=TOL64)
+    assert h["eps"] == hj["eps"]
+
+
+@pytest.mark.parametrize("use_pallas", ["never", "always"])
+def test_f32_matches_jax_f32(use_pallas, data):
+    """float32: the same clusters as the JAX package's float32 fit and TC
+    within 1e-3 relative ('always' runs the chain kernel's CPU twin)."""
+    w0 = _shared_init(8, 64)
+    c = lct.Corex(n_hidden=8, use_pallas=use_pallas, device="cpu").fit(
+        data, init_ws=w0)
+    j = lc.Corex(n_hidden=8).fit(data, init_ws=w0)
+    assert c.ws.dtype == torch.float32
+    assert np.array_equal(c.clusters.numpy(), np.asarray(j.clusters))
+    assert abs(c.tc - j.tc) / j.tc < 1e-3
+
+
+def test_seeded_init_matches_jax(data):
+    """A seed gives the JAX package's W0 (numpy RandomState), so seeded
+    fits agree without an explicit init."""
+    c = lct.Corex(n_hidden=8, seed=3, dtype="float64", device="cpu").fit(
+        data)
+    j = lc.Corex(n_hidden=8, seed=3, dtype="float64").fit(data)
+    assert abs(c.tc - j.tc) < TOL64
+    assert np.abs(c.ws.numpy() - np.asarray(j.ws)).max() < TOL64
+
+
+def test_transform_and_details_match_jax(data):
+    w0 = _shared_init(8, 64)
+    c = lct.Corex(n_hidden=8, dtype="float64", device="cpu").fit(
+        data, init_ws=w0)
+    j = lc.Corex(n_hidden=8, dtype="float64").fit(data, init_ws=w0)
+    x2 = block_data(n=300, p=64, m=8, seed=9)
+    y = c.transform(x2)
+    assert tuple(y.shape) == (300, 8)
+    assert np.abs(y.numpy() - np.asarray(j.transform(x2))).max() < TOL64
+    yd, md = c.transform(x2, details=True)
+    yj, mj = j.transform(x2, details=True)
+    assert np.abs(yd.numpy() - np.asarray(yj)).max() < TOL64
+    assert list(md) == list(mj)
+    # relative to each entry's largest magnitude: a variable at the rho
+    # clip has invrho ~5e5, where the last bits of rho move invrho by ~1e-6
+    for key in mj:
+        want = np.asarray(mj[key])
+        scale = max(1.0, float(np.abs(want).max()))
+        assert np.abs(md[key].numpy() - want).max() < TOL64 * scale, key
+
+
+def test_corex_from_numpy_carries_a_jax_fit(data, tmp_path):
+    """A JAX-fitted model's save_corex arrays build a port model that
+    transforms like the JAX model and reports the same TC and clusters."""
+    j = lc.Corex(n_hidden=8, seed=1, dtype="float64").fit(data)
+    path = tmp_path / "model.npz"
+    save_corex(j, str(path))
+    with np.load(path) as z:
+        state = {k: z[k] for k in z.files}
+    c = lct.corex_from_numpy(state, n_hidden=8, dtype="float64",
+                             device="cpu")
+    x2 = block_data(n=200, p=64, m=8, seed=4)
+    assert np.abs(c.transform(x2).numpy()
+                  - np.asarray(j.transform(x2))).max() < 1e-10
+    assert abs(c.tc - j.tc) < 1e-10
+    assert np.abs(c.tcs.numpy() - np.asarray(j.tcs)).max() < 1e-10
+    assert np.abs(c.mis.numpy() - np.asarray(j.mis)).max() < 1e-10
+    assert np.array_equal(c.clusters.numpy(), np.asarray(j.clusters))
+    # a later fit warm-starts from the carried weights, as after load_corex
+    assert torch.equal(c._resolve_w0(None), c.ws)
+
+
+def test_config_fields_and_defaults_match_jax():
+    ours = [(f.name, f.default) for f in dataclasses.fields(CorexConfig)]
+    theirs = [(f.name, f.default) for f in dataclasses.fields(JaxConfig)]
+    assert ours == theirs
+    assert CorexConfig().anneal_schedule() == JaxConfig().anneal_schedule()
+    cfg = dict(n_hidden=4, stage_tol_factor=10.0, tol=1e-4)
+    assert CorexConfig(**cfg).tol_schedule() == \
+        JaxConfig(**cfg).tol_schedule()
+    for n, p in ((100, 50), (100, 300), (30000, 25000)):
+        assert CorexConfig().pick_strategy(n, p) == \
+            JaxConfig().pick_strategy(n, p)
+
+
+def test_use_pallas_interpret_rejected_by_name():
+    with pytest.raises(ValueError, match="interpret"):
+        CorexConfig(use_pallas="interpret")
+
+
+def test_resolve_config_per_device():
+    cfg = CorexConfig(n_hidden=512, optimizer="auto")
+    cuda = resolve_config(cfg, 10000, "cuda", n_samples=10000)
+    assert (cuda.optimizer, cuda.use_pallas) == ("fixed_point", "always")
+    assert resolve_config(cfg, 10000, "cpu", 10000).use_pallas == "never"
+    f64 = dataclasses.replace(cfg, dtype="float64")
+    assert resolve_config(f64, 10000, "cuda", 10000).use_pallas == "never"
+    # beyond the kernel's limit the plain chain runs
+    wide = dataclasses.replace(cfg, n_hidden=9000)
+    assert resolve_config(wide, 10000, "cuda", 10000).use_pallas == "never"
+    # undersampled → heavy-ball, as in the JAX package
+    assert resolve_config(cfg, 10000, "cuda", 200).optimizer == "momentum"
+
+
+@pytest.mark.parametrize("kwargs,fit_kwargs", [
+    (dict(n_restarts=2), {}),
+    (dict(init="spectral", anneal=False), {}),
+    (dict(stage_subsample=0.5, moment_strategy="samples"), {}),
+    (dict(discourage_overlap=False), {}),
+    (dict(matmul_dtype="bfloat16"), {}),
+    (dict(matmul_dtype="int8"), {}),
+    (dict(gaussianize="empirical"), {}),
+    (dict(preset="throughput"), {}),
+    ({}, dict(mesh=object())),
+])
+def test_unported_options_raise(kwargs, fit_kwargs, data):
+    c = lct.Corex(n_hidden=4, device="cpu", **kwargs)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+        c.fit(data, **fit_kwargs)
+
+
+def test_cuda_device_without_cuda_raises(data):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lct.Corex(n_hidden=4).fit(data)
+
+
+def test_not_fitted_and_surface(data):
+    c = lct.Corex(n_hidden=4, device="cpu", max_iter=50)
+    with pytest.raises(lct.NotFittedError):
+        c.transform(data)
+    c.fit(data)
+    assert c.best_restart_ == 0
+    assert len(c.history["TC"]) == c.n_iter_
+    assert c.diagnostics.tc_history.shape == (7, 50)
+    with pytest.raises(ValueError, match="columns"):
+        c.transform(data[:, :10])
+    # constructor arguments are stored verbatim; validation waits for use
+    bad = lct.Corex(n_hidden=4, optimizer="nope", device="cpu")
+    assert bad.optimizer == "nope"
+    with pytest.raises(ValueError, match="optimizer"):
+        bad.fit(data)
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys, linearcorex_tpu_torch; "
+            "assert 'jax' not in sys.modules, 'jax imported'; "
+            "assert 'linearcorex_tpu' not in sys.modules; print('ok')")
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                          text=True, timeout=300,
+                          cwd=str(pathlib.Path(__file__).resolve().parents[1]))
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert proc.stdout.strip() == "ok"

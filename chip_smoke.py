@@ -8,25 +8,45 @@ Run from the root of a checkout, on a machine with one NVIDIA Hopper card
 phase prints one JSON line; any failed phase raises, so the script exits
 non-zero and does not print the final line.
 
-1. env      card name and power limit, torch/CUDA versions; TF32 off.
-2. build    compiles linearcorex_tpu_torch/csrc/ns_chain.cu for sm_90a.
-3. kernels  the chain kernel against its plain PyTorch twin at
-            (p, m) = (10000, 512), (400, 100), (999, 7), (257, 130):
-            max|kernel - twin| / max|twin| < 1e-5 for every output, and a
-            second launch bitwise equal to the first.
-4. fit      Corex(n_hidden=512, optimizer='auto', seed=0).fit(x) on block
-            data with n = p = 10,000 and 100 planted blocks (gram strategy,
-            damped fixed point, the chain kernel): the kernel must have run,
-            TC must be finite, transform(x) must be finite (n, 512). The
-            share of blocks landing whole in one cluster is reported
-            against a bar of 0.95 (see BLOCKS_BAR). The same fit with
-            use_pallas='never' is reported beside it. A small fit on the
-            card must agree with the float64 CPU fit of the port (same
-            clusters, TC within 1e-3 relative).
-5. timing   fit_core iterations/s at p=10k, m=512 (gram, fixed_point,
-            anneal=False, tol=0, 200 iterations) with the kernel and with
-            the plain chain, and the kernel alone against its twin; CUDA
-            events, an untimed warm-up, min of 3, the two versions in turns.
+1. env       card name and power limit, torch/CUDA versions; TF32 off.
+2. build     compiles linearcorex_tpu_torch/csrc/ns_chain.cu for sm_90a.
+3. kernels   the chain kernel against its plain PyTorch twin at
+             (p, m) = (10000, 512), (400, 100), (999, 7), (257, 130):
+             max|kernel - twin| / max|twin| < 1e-5 for every output, and
+             a second launch bitwise equal to the first.
+4. operands  the int8 and bf16 products on the card at (p, m) = (10000,
+             512) and (999, 7): quantize_gram, _quant_cols and every int8
+             product bitwise equal to the same call on the CPU, the scaled
+             Σ-applications within 1e-6 relative; _mm_bf16 in float32,
+             within BF16_TOL of the largest magnitude of the exact product
+             of the bf16-rounded operands (a bf16-rounded output misses).
+5. fit       the main paths, each with the launch count set to 0 just
+             before and read just after: Corex(n_hidden=512,
+             optimizer='auto', seed=0).fit(x) on block data with n = p =
+             10,000 and 100 planted blocks (gram strategy, damped fixed
+             point, the chain kernel) in float32 ('fit'), with
+             matmul_dtype='int8' (the JAX package's benchmark
+             configuration, 'fit_int8') and 'bfloat16' ('fit_bf16'), and
+             preset='throughput' (int8, spectral W0, anneal=False,
+             'fit_throughput'). Each must run the kernel, resolve the fixed
+             point and give a finite TC and transform; int8 must pass the
+             wrap guard silently. The share of blocks landing whole in one
+             cluster is reported against a bar of 0.95 (see BLOCKS_BAR).
+             The float32 fit with use_pallas='never' is reported beside it.
+6. small     small fits on the card (n=2000, p=256, m=8) against the
+             port's float64 CPU fit from the same W0 — same clusters, TC
+             within 1e-3 relative: the non-overlap fit through the kernel
+             ('small_reference'); the overlap objective (momentum, gram
+             and samples), 'empirical' preprocessing and stage_subsample
+             =0.5 ('small_paths').
+7. timing    fit_core iterations/s at p=10k, m=512 (gram, fixed_point,
+             anneal=False, tol=0, 200 iterations): float32 with the kernel
+             and with the plain chain, bf16 and int8 with the kernel; CUDA
+             events, an untimed warm-up, min of 3, the versions in turns.
+             The kernel alone against its twin, the same way.
+8. profile   torch.profiler over 20 such iterations per operand mode:
+             wall, device-busy and idle time per iteration and the
+             kernels that take the most device time.
 
 Before the last line it prints the kernels' summary line and the card's
 `nvidia-smi` name and power limit; the last line is
@@ -50,6 +70,14 @@ DATA_SEED = 0
 # small fit on the card agrees with the float64 CPU fit.
 BLOCKS_BAR = 0.95
 TIMED_ITERS = 200
+PROFILED_ITERS = 20
+SMALL_TOL_REL = 1e-3    # card f32 fit vs the port's float64 CPU fit
+# _mm_bf16 on the card vs the exact (float64) product of the bf16-rounded
+# operands, relative to its largest magnitude. The tensor cores' float32
+# accumulation itself is 1.2e-5-2.2e-5 off at K = 10,000 on an H100 (a
+# CUDA-core float32 GEMM 4e-7-4.4e-6); a bf16-rounded output is 1.8e-3-
+# 2.9e-3 off. The bound sits between the two.
+BF16_TOL = 1e-4
 
 
 def emit(phase, **fields):
@@ -127,7 +155,229 @@ def blocks_whole(clusters):
                for b in range(BLOCKS)) / BLOCKS
 
 
+def check_operands(p, m, n, dev):
+    """The int8 and bf16 products of the operand modes on the card,
+    against the same calls on the CPU (phase 4). Returns the fields of
+    the phase's line."""
+    import numpy as np
+    import torch
+    from linearcorex_tpu_torch.ops import moments as Mo
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn((n, p), generator=gen)
+    x[:, 1:] += 0.5 * x[:, :1]                  # correlated columns
+    x = (x - x.mean(0)) / x.std(0, correction=0)
+    gram = Mo.compute_gram(x.to(dev)).cpu()
+    v = 0.1 * torch.randn((p, m), generator=gen)
+    out = {}
+    for kind, data in (("gram", gram), ("samples", x)):
+        quantize = Mo.quantize_gram if kind == "gram" else \
+            Mo.quantize_samples
+        qc, qg = quantize(data), quantize(data.to(dev))
+        check(torch.equal(qg.q.cpu(), qc.q)
+              and torch.equal(qg.scale.cpu(), qc.scale),
+              f"quantize_{kind} at ({p}, {m}) differs between card and CPU")
+        vq_c, _ = Mo._quant_cols(v)
+        vq_g, _ = Mo._quant_cols(v.to(dev))
+        check(torch.equal(vq_g.cpu(), vq_c),
+              f"_quant_cols at ({p}, {m}) differs between card and CPU")
+        products = [(qc.q, vq_c, qg.q, vq_g)]
+        if kind == "samples":
+            # the second product contracts the sample axis (qᵀ·tq)
+            t = Mo._int8_mm(qc.q, vq_c).to(torch.float32) \
+                * (qc.scale * Mo._quant_cols(v)[1])[None, :]
+            tq, _ = Mo._quant_cols(t)
+            products.append((qc.q.T, tq, qg.q.T, tq.to(dev)))
+        for a_c, b_c, a_g, b_g in products:
+            check(torch.equal(Mo._int8_mm(a_g, b_g).cpu(),
+                              Mo._int8_mm(a_c, b_c)),
+                  f"int8 product ({kind}, {tuple(a_c.shape)} x "
+                  f"{tuple(b_c.shape)}) differs between card and CPU")
+        apply = Mo._apply_gram_int8 if kind == "gram" else \
+            Mo._apply_sigma_int8
+        want = apply(qc, v)
+        got = apply(qg, v.to(dev)).cpu()
+        rel = float((got - want).abs().max() / want.abs().max())
+        check(got.dtype == torch.float32 and rel <= 1e-6,
+              f"{apply.__name__} at ({p}, {m}) is off by {rel:.3e} "
+              f"relative to the CPU (bound 1e-6)")
+        out[f"{apply.__name__}_rel_err"] = rel
+
+    a, b = gram.to(dev), v.to(dev)
+    with Mo.full_f32_matmul():
+        got = Mo._mm_bf16(a, b, torch.float32)
+        rounded = (a.bfloat16() @ b.bfloat16()).float()
+    want = a.bfloat16().double() @ b.bfloat16().double()
+    scale = float(want.abs().max())
+    err = float((got.double() - want).abs().max()) / scale
+    err_rounded = float((rounded.double() - want).abs().max()) / scale
+    check(got.dtype == torch.float32, f"_mm_bf16 returned {got.dtype}")
+    check(err < BF16_TOL, f"_mm_bf16 at ({p}, {m}) is off by {err:.3e} of "
+          f"the largest magnitude (bound {BF16_TOL:g})")
+    check(err_rounded >= BF16_TOL, "the bf16 check cannot tell a "
+          "bf16-rounded output apart at this shape")
+    out.update(mm_bf16_rel_err=err, bf16_rounded_output_rel_err=err_rounded,
+               mm_out_dtype_route=Mo._cuda_mm_has_out_dtype())
+    return out
+
+
+def north_star_fit(x, **kw):
+    """One annealed fit at the north-star shape through `Corex.fit`, with
+    the chain kernel's launch count set to 0 just before and read just
+    after. Returns (model, launches, seconds, warnings raised)."""
+    import warnings
+
+    import torch
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+
+    model = lct.Corex(n_hidden=M, seed=0, tol=FIT_TOL,
+                      max_iter=FIT_MAX_ITER, device="cuda", **kw)
+    torch.cuda.synchronize()
+    ns_chain.launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        model.fit(x)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = ns_chain.launches
+    return model, launches, seconds, [str(w.message) for w in rec]
+
+
+def check_north_star(name, model, launches, x, tc_f32):
+    """Gates shared by the north-star fits; returns the reported fields."""
+    import numpy as np
+    import torch
+
+    check(model.config.pick_strategy(N, P) == "gram",
+          f"{name}: the fit did not take the gram strategy")
+    check(model.resolved_optimizer_ == "fixed_point",
+          f"{name}: optimizer resolved to {model.resolved_optimizer_}")
+    check(launches > 0, f"{name}: the fit never launched the chain kernel")
+    tc = model.tc
+    check(np.isfinite(tc), f"{name}: TC is not finite: {tc}")
+    y = model.transform(x)
+    check(tuple(y.shape) == (N, M), f"{name}: transform shape "
+          f"{tuple(y.shape)}")
+    check(bool(torch.isfinite(y).all()), f"{name}: transform is not finite")
+    whole = blocks_whole(model.clusters.cpu().numpy())
+    return dict(tc=tc, tc_f32_same_w0=tc_f32, n_iter=model.n_iter_,
+                iters_per_stage=model.diagnostics.iters_per_stage.tolist(),
+                kernel_launches=launches, blocks_whole=whole,
+                blocks_bar=BLOCKS_BAR, blocks_bar_met=whole >= BLOCKS_BAR)
+
+
+def small_fits(card):
+    """Small fits on the card against the port's float64 CPU fit from the
+    same W0 (phase 6)."""
+    import numpy as np
+    import linearcorex_tpu_torch as lct
+
+    rng = np.random.RandomState(3)
+    zs = rng.normal(size=(2000, 8))
+    xs = np.repeat(zs, 32, axis=1) * 0.9 + 0.436 * rng.normal(
+        size=(2000, 256))
+    ws0 = rng.normal(scale=1 / 16, size=(8, 256))
+    small = dict(n_hidden=8, seed=0, max_iter=2000)
+    cases = [("small_reference", dict(use_pallas="always")),
+             ("overlap_gram", dict(discourage_overlap=False,
+                                   moment_strategy="gram")),
+             ("overlap_samples", dict(discourage_overlap=False,
+                                      moment_strategy="samples")),
+             ("empirical", dict(gaussianize="empirical")),
+             ("stage_subsample", dict(stage_subsample=0.5,
+                                      moment_strategy="samples"))]
+    for name, kw in cases:
+        gpu = lct.Corex(device="cuda", **small, **kw).fit(xs, init_ws=ws0)
+        cpu = lct.Corex(dtype="float64", device="cpu", **small, **{
+            k: v for k, v in kw.items() if k != "use_pallas"}).fit(
+            xs, init_ws=ws0)
+        rel_tc = abs(gpu.tc - cpu.tc) / abs(cpu.tc)
+        same = bool(np.array_equal(gpu.clusters.cpu().numpy(),
+                                   cpu.clusters.numpy()))
+        fields = dict(tc_card=gpu.tc, tc_cpu_f64=cpu.tc, tc_rel_diff=rel_tc,
+                      clusters_equal=same, n_iter_card=gpu.n_iter_,
+                      n_iter_cpu=cpu.n_iter_)
+        if name == "small_reference":
+            emit(name, **fields)
+        else:
+            emit("small_paths", path=name, **fields)
+        check(same and rel_tc < SMALL_TOL_REL,
+              f"small fit '{name}' on the card disagrees with the float64 "
+              f"CPU fit")
+
+
+def timed_operands(dev):
+    """The north-star operands for the timing and profile phases: the Gram
+    matrix of standardized block data in each mode, and a seeded W0."""
+    import numpy as np
+    import torch
+    from linearcorex_tpu_torch.ops import moments as Mo
+
+    x = block_data(N, P, BLOCKS, seed=DATA_SEED + 1, dev=dev)
+    x = (x - x.mean(0)) / x.std(0, correction=0)
+    gram = Mo.compute_gram(x)
+    del x
+    w0 = torch.as_tensor(np.random.RandomState(0).normal(
+        scale=1 / np.sqrt(P), size=(M, P)), dtype=torch.float32, device=dev)
+    return {"float32": gram, "bfloat16": gram.to(torch.bfloat16),
+            "int8": Mo.quantize_gram(gram)}, w0
+
+
+def fit_core_runner(data, w0, matmul_dtype, use_pallas, iters):
+    """A closure running `iters` fixed-point iterations of fit_core at the
+    north-star shape (anneal=False, tol=0); it stores the diagnostics."""
+    from linearcorex_tpu_torch.config import CorexConfig
+    from linearcorex_tpu_torch.core.solver import fit_core
+    from linearcorex_tpu_torch.models.corex import _make_obj_grad
+    from linearcorex_tpu_torch.ops import moments as Mo
+
+    cfg = CorexConfig(n_hidden=M, max_iter=iters, tol=0.0, anneal=False,
+                      record_history=False, optimizer="fixed_point",
+                      use_pallas=use_pallas, matmul_dtype=matmul_dtype)
+    obj_grad = _make_obj_grad(data, cfg, "gram")
+    out = {}
+
+    def run():
+        with Mo.full_f32_matmul():
+            out["diag"] = fit_core(obj_grad, w0, cfg)[1]
+    return run, out
+
+
+def profile_iterations(data, w0, mode, card):
+    """torch.profiler over PROFILED_ITERS north-star iterations of one
+    operand mode (after an untimed warm-up): wall, device-busy and idle
+    ms per iteration and the top kernels by device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    run, _ = fit_core_runner(data, w0, mode, "always", PROFILED_ITERS)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.key_averages()
+               if getattr(e, "device_time_total", 0) > 0
+               and e.device_type == torch.autograd.DeviceType.CUDA]
+    kernels.sort(key=lambda e: -e.device_time_total)
+    # one iteration = one objective evaluation; fit_core runs one more
+    evals = PROFILED_ITERS + 1
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / evals
+    wall_ms = wall * 1e3 / evals
+    emit("profile", mode=mode, evaluations=evals, wall_ms=wall_ms,
+         device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+         top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3 / evals,
+               "calls": e.count / evals} for e in kernels[:10]], card=card)
+
+
 def main():
+    import warnings
+
     import numpy as np
     import torch
 
@@ -136,10 +386,6 @@ def main():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False — "
                          "this script runs only on a CUDA card")
     import linearcorex_tpu_torch as lct
-    from linearcorex_tpu_torch.config import CorexConfig
-    from linearcorex_tpu_torch.core.solver import fit_core
-    from linearcorex_tpu_torch.models.corex import _make_obj_grad
-    from linearcorex_tpu_torch.ops import moments as Mo
     from linearcorex_tpu_torch.ops.cuda_moments import (ns_chain,
                                                         ns_chain_reference)
     from linearcorex_tpu_torch.utils import build
@@ -185,32 +431,50 @@ def main():
         emit("kernels", p=p, m=m, rel_err=rel, bound=TOL_REL,
              bitwise_repeatable=True)
 
-    # 4. fit: the main path through the entry points a user calls
+    # 4. operands
+    for p, m, n in ((P, M, N), (999, 7, 1500)):
+        emit("operands", p=p, m=m, n=n, **check_operands(p, m, n, dev))
+
+    # 5. fit: the main paths through the entry points a user calls
     x = block_data(N, P, BLOCKS, seed=DATA_SEED, dev=dev)
-    model = lct.Corex(n_hidden=M, seed=0, optimizer="auto", tol=FIT_TOL,
-                      max_iter=FIT_MAX_ITER, device="cuda")
-    ns_chain.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.fit(x)
-    torch.cuda.synchronize()
-    fit_s = time.perf_counter() - t0
-    launches = ns_chain.launches
-    check(launches > 0, "the fit never launched the chain kernel")
-    check(model.resolved_optimizer_ == "fixed_point",
-          f"optimizer resolved to {model.resolved_optimizer_}")
-    tc = model.tc
-    check(np.isfinite(tc), f"TC is not finite: {tc}")
-    whole = blocks_whole(model.clusters.cpu().numpy())
-    y = model.transform(x)
-    check(tuple(y.shape) == (N, M), f"transform shape {tuple(y.shape)}")
-    check(bool(torch.isfinite(y).all()), "transform is not finite")
+    launches = {}
+    model, launches["fit"], fit_s, _ = north_star_fit(x, optimizer="auto")
+    tc_f32 = model.tc
     emit("fit", n=N, p=P, m=M, data_seed=DATA_SEED, max_iter=FIT_MAX_ITER,
          tol=FIT_TOL, strategy="gram", optimizer=model.resolved_optimizer_,
-         kernel_launches=launches, tc=tc, n_iter=model.n_iter_,
-         iters_per_stage=model.diagnostics.iters_per_stage.tolist(),
-         blocks_whole=whole, blocks_bar=BLOCKS_BAR,
-         blocks_bar_met=whole >= BLOCKS_BAR, fit_seconds=fit_s, card=card)
+         fit_seconds=fit_s, card=card,
+         **check_north_star("fit", model, launches["fit"], x, tc_f32))
+
+    for name, kw in (("fit_int8", dict(matmul_dtype="int8")),
+                     ("fit_bf16", dict(matmul_dtype="bfloat16"))):
+        model, launches[name], fit_s, msgs = north_star_fit(
+            x, optimizer="auto", **kw)
+        fields = check_north_star(name, model, launches[name], x, tc_f32)
+        guard = [w for w in msgs if "overflow" in w]
+        check(not guard, f"{name}: the int8 wrap guard spoke: {guard}")
+        emit(name, matmul_dtype=kw["matmul_dtype"], fit_seconds=fit_s,
+             warnings=msgs, card=card, **fields)
+
+    thr = lct.Corex(n_hidden=M, preset="throughput", seed=0, device="cuda")
+    data, cfg, strategy = thr._prepare_fit(x)
+    w0 = thr._resolve_w0(None, data=data, strategy=strategy)
+    ortho = float((w0 @ w0.T - torch.eye(M, device=dev)).abs().max())
+    del data
+    check(cfg.init == "spectral" and not cfg.anneal
+          and cfg.matmul_dtype == "int8",
+          f"preset='throughput' resolved to init={cfg.init}, anneal="
+          f"{cfg.anneal}, matmul_dtype={cfg.matmul_dtype}")
+    check(ortho < 1e-3, f"the spectral W0 rows are not orthonormal "
+          f"(max |W0·W0ᵀ − I| = {ortho:.3e})")
+    model, launches["fit_throughput"], fit_s, msgs = north_star_fit(
+        x, preset="throughput")
+    fields = check_north_star("fit_throughput", model,
+                              launches["fit_throughput"], x, tc_f32)
+    check(len(fields["iters_per_stage"]) == 1,
+          "preset='throughput' ran more than one anneal stage")
+    emit("fit_throughput", init=cfg.init, anneal=cfg.anneal,
+         matmul_dtype=cfg.matmul_dtype, tol=cfg.tol, spectral_w0_ortho=ortho,
+         fit_seconds=fit_s, warnings=msgs, card=card, **fields)
 
     plain = lct.Corex(n_hidden=M, seed=0, optimizer="auto", tol=FIT_TOL,
                       max_iter=FIT_MAX_ITER, use_pallas="never",
@@ -221,59 +485,41 @@ def main():
     torch.cuda.synchronize()
     plain_s = time.perf_counter() - t0
     check(np.isfinite(plain.tc), "plain-chain TC is not finite")
-    emit("fit_plain", tc=plain.tc, tc_rel_diff=abs(plain.tc - tc) / abs(tc),
+    emit("fit_plain", tc=plain.tc,
+         tc_rel_diff=abs(plain.tc - tc_f32) / abs(tc_f32),
          n_iter=plain.n_iter_,
          blocks_whole=blocks_whole(plain.clusters.cpu().numpy()),
          fit_seconds=plain_s, card=card)
-    del x, y, model, plain
+    del x, model, plain, thr
 
-    # small input: the card (f32, kernel) against the port's float64 CPU fit
-    rng = np.random.RandomState(3)
-    zs = rng.normal(size=(2000, 8))
-    xs = np.repeat(zs, 32, axis=1) * 0.9 + 0.436 * rng.normal(
-        size=(2000, 256))
-    ws0 = rng.normal(scale=1 / 16, size=(8, 256))
-    small = dict(n_hidden=8, seed=0, max_iter=2000)
-    gpu = lct.Corex(use_pallas="always", device="cuda", **small).fit(
-        xs, init_ws=ws0)
-    cpu = lct.Corex(dtype="float64", device="cpu", **small).fit(
-        xs, init_ws=ws0)
-    rel_tc = abs(gpu.tc - cpu.tc) / abs(cpu.tc)
-    same_small = bool(np.array_equal(gpu.clusters.cpu().numpy(),
-                                     cpu.clusters.numpy()))
-    emit("small_reference", tc_card=gpu.tc, tc_cpu_f64=cpu.tc,
-         tc_rel_diff=rel_tc, clusters_equal=same_small)
-    check(same_small and rel_tc < 1e-3,
-          "small fit on the card disagrees with the float64 CPU fit")
+    # 6. small fits on the card against the port's float64 CPU fit
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        small_fits(card)
 
-    # 5. timing
-    x = block_data(N, P, BLOCKS, seed=DATA_SEED + 1, dev=dev)
-    x = (x - x.mean(0)) / x.std(0, correction=0)
-    gram = Mo.compute_gram(x)
-    del x
-    w0 = torch.as_tensor(np.random.RandomState(0).normal(
-        scale=1 / np.sqrt(P), size=(M, P)), dtype=torch.float32, device=dev)
-    rates = {"always": [], "never": []}
+    # 7. timing
+    operands, w0 = timed_operands(dev)
+    variants = [("float32", "never"), ("float32", "always"),
+                ("bfloat16", "always"), ("int8", "always")]
+    rates = {v: [] for v in variants}
     iters = {}
-    for mode in ("never", "always", "always", "never", "never", "always"):
-        cfg = CorexConfig(n_hidden=M, max_iter=TIMED_ITERS, tol=0.0,
-                          anneal=False, record_history=False,
-                          optimizer="fixed_point", use_pallas=mode)
-        obj_grad = _make_obj_grad(gram, cfg, "gram")
-        out = {}
-
-        def run():
-            with Mo.full_f32_matmul():
-                out["diag"] = fit_core(obj_grad, w0, cfg)[1]
-
-        # untimed warm-up once per mode, then one timed run per turn
-        ms = time_ms(run, reps=1, warmup=not rates[mode])
-        iters[mode] = int(out["diag"].iters_per_stage.sum())
-        rates[mode].append(iters[mode] / (ms / 1e3))
+    for turn in (variants, variants[::-1], variants):
+        for mode, use_pallas in turn:
+            run, out = fit_core_runner(operands[mode], w0, mode, use_pallas,
+                                       TIMED_ITERS)
+            # untimed warm-up once per variant, then one timed run per turn
+            ms = time_ms(run, reps=1, warmup=not rates[(mode, use_pallas)])
+            n_it = int(out["diag"].iters_per_stage.sum())
+            iters[f"{mode}/{use_pallas}"] = n_it
+            rates[(mode, use_pallas)].append(n_it / (ms / 1e3))
     emit("timing_fit_core", p=P, m=M, strategy="gram",
          optimizer="fixed_point", iters=iters,
-         it_per_s_kernel=max(rates["always"]),
-         it_per_s_plain=max(rates["never"]), card=card)
+         it_per_s_kernel=max(rates[("float32", "always")]),
+         it_per_s_plain=max(rates[("float32", "never")]),
+         it_per_s_bf16_kernel=max(rates[("bfloat16", "always")]),
+         it_per_s_int8_kernel=max(rates[("int8", "always")]),
+         all_turns={f"{m}/{u}": r for (m, u), r in rates.items()},
+         card=card)
 
     cxy, ry, sqz = chain_inputs(P, M)
     kernel_ms = plain_ms = float("inf")
@@ -288,11 +534,16 @@ def main():
     emit("timing_kernel", p=P, m=M, kernel_ms=kernel_ms, plain_ms=plain_ms,
          card=card)
 
+    # 8. profile
+    for mode in ("float32", "bfloat16", "int8"):
+        profile_iterations(operands[mode], w0, mode, card)
+
     print(json.dumps({"kernels": [{
         "name": "ns_chain", "route": "cuda",
         "source": "linearcorex_tpu_torch/csrc/ns_chain.cu",
         "replaces": "linearcorex_tpu/ops/pallas_moments.py:114",
-        "launches": launches, "max_abs_err": max_abs_err,
+        "launches": sum(launches.values()),
+        "launches_per_path": launches, "max_abs_err": max_abs_err,
         "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

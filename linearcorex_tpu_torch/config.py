@@ -65,8 +65,9 @@ class CorexConfig:
     y_scale: float = 1.0
     # 'float32' (the device dtype) or 'float64' (oracle-parity runs).
     dtype: str = "float32"
-    # Operand type of the big moment GEMMs. Only 'float32' is ported;
-    # 'bfloat16' and 'int8' raise NotImplementedError at fit.
+    # Operand type of the big moment GEMMs: 'float32', 'bfloat16' (bf16
+    # operands, float32 products) or 'int8' (quantized operand, int32
+    # products; needs dtype='float32' and the non-overlap path).
     matmul_dtype: str = "float32"
     # 'default' and 'highest' both run float32 matmuls at full float32
     # (never TF32) in the port.
@@ -89,7 +90,7 @@ class CorexConfig:
     # Tolerance multiplier for the non-final anneal stages.
     stage_tol_factor: float = 1.0
     # Row-subsample fraction for the non-final anneal stages (samples
-    # strategy). Not ported: values < 1 raise NotImplementedError at fit.
+    # strategy; the final stage always runs on the full data).
     stage_subsample: float = 1.0
     lr_init: float = 0.05
     lr_growth: float = 1.1
@@ -228,9 +229,8 @@ class CorexConfig:
 
 @dataclasses.dataclass(frozen=True)
 class PreprocessConfig:
-    """Preprocessing options: gaussianize mode + missing value sentinel.
-    'empirical' is a valid mode but is not ported yet: fitting with it
-    raises NotImplementedError."""
+    """Preprocessing options: gaussianize mode + missing value
+    sentinel."""
 
     gaussianize: str = "standard"
     missing_values: Optional[float] = None

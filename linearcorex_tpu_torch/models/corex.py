@@ -1,11 +1,14 @@
 """The `Corex` estimator of the PyTorch port: single-device fit and
 inference.
 
-Port of the main slice of `linearcorex_tpu/models/corex.py`: the
+Port of the single-device fit of `linearcorex_tpu/models/corex.py`: the
 constructor surface (stored verbatim, validated at first use), the 'auto'
-resolution of the optimizer and of the chain kernel, the seeded init, the
-annealed fit, `transform` (with `details=True`) and the fitted properties
-`tc`, `tcs`, `mis`, `clusters`, `history` and `n_iter_`.
+resolution of the optimizer and of the chain kernel, the operand modes
+(`matmul_dtype` 'float32', 'bfloat16', 'int8' with its wrap guard), the
+seeded random and spectral inits, presets, the annealed fit on the
+non-overlap and overlap objectives, the two-program `stage_subsample`
+fit, `transform` (with `details=True`) and the fitted properties `tc`,
+`tcs`, `mis`, `clusters`, `history` and `n_iter_`.
 
 Differences by design:
 - `device` (default "cuda") names where the fit runs. A CUDA device that
@@ -14,17 +17,20 @@ Differences by design:
 - The fit is a Python loop with one host read per iteration
   (`core.solver`), not one compiled program.
 - `use_pallas='auto'` takes the CUDA chain kernel on a CUDA device for
-  every non-overlap float32 fit the kernel supports. The JAX package's
-  m >= 128 gate was a TPU measurement and is not copied.
+  every non-overlap float32 fit the kernel supports, whatever the operand
+  mode. The JAX package's m >= 128 gate was a TPU measurement and is not
+  copied.
 
-Options of the JAX package that are not ported yet raise
-NotImplementedError at fit, each naming its ROADMAP.md queue item.
+Options of the JAX package that are not ported yet (restarts, a mesh,
+the faster `matmul_precision` values) raise NotImplementedError at fit,
+each naming its ROADMAP.md queue item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import warnings
 from typing import Optional
 
 import numpy as np
@@ -52,35 +58,40 @@ def _not_ported(what: str, item: str):
         f"Queue 1, {item}); the JAX package linearcorex_tpu supports it")
 
 
-def check_ported(cfg: CorexConfig, pre_cfg: PreprocessConfig,
-                 n_restarts=1, mesh=None) -> None:
+def check_ported(cfg: CorexConfig, n_restarts=1, mesh=None) -> None:
     """Raise NotImplementedError, by name, for an option of the JAX
     package that the port does not run yet."""
     if mesh is not None:
         _not_ported("fit(mesh=...)", "item 17 (sharding)")
     if n_restarts != 1:
         _not_ported("n_restarts > 1", "item 11 (restarts)")
-    if cfg.init == "spectral":
-        _not_ported("init='spectral'", "item 9 (fit knobs)")
-    if cfg.stage_subsample < 1.0:
-        _not_ported("stage_subsample < 1", "item 9 (fit knobs)")
-    if not cfg.discourage_overlap:
-        _not_ported("discourage_overlap=False", "item 8 (overlap path)")
-    if cfg.matmul_dtype != "float32":
-        _not_ported(f"matmul_dtype={cfg.matmul_dtype!r}",
-                    "item 7 (operand modes)")
     if cfg.matmul_precision not in ("default", "highest"):
         _not_ported(f"matmul_precision={cfg.matmul_precision!r}",
                     "item 1 (config)")
-    if pre_cfg.gaussianize == "empirical":
-        _not_ported("gaussianize='empirical'", "item 2 (preprocessing)")
 
 
 def resolve_optimizer(cfg: CorexConfig, nv: int,
                       n_samples: Optional[int]) -> CorexConfig:
     """optimizer='auto' → 'fixed_point' when the problem is fully sampled
     (n_samples >= nv, so Σ̂ is full rank) on the non-overlap path, else
-    'momentum' — the JAX package's policy."""
+    'momentum' — the JAX package's policy.
+
+    Also the JAX package's hazard check of stage_tol_factor under int8:
+    a composed non-final stage tol that is large against the ~1/sqrt(p)
+    scale of W's entries warns."""
+    stage_tols = cfg.tol_schedule()
+    if (len(stage_tols) > 1 and cfg.stage_tol_factor > 1.0
+            and cfg.matmul_dtype == "int8"
+            and max(stage_tols[:-1]) * np.sqrt(nv) >= 0.05):
+        warnings.warn(
+            f"stage_tol_factor={cfg.stage_tol_factor:g} with "
+            f"matmul_dtype='int8' at p={nv}: the composed non-final "
+            f"stage tol ({max(stage_tols[:-1]):g}) is large relative to "
+            f"the ~1/sqrt(p) W-entry scale, and under int8 moment noise "
+            f"the JAX package measured this to truncate annealing and "
+            f"COLLAPSE TC at scale, where float32 holds TC at the same "
+            f"composed tols. Use stage_tol_factor=1 with int8, or keep "
+            f"the factor on the float32/bfloat16 path.")
     if cfg.optimizer != "auto":
         return cfg
     fp_ok = (cfg.discourage_overlap and n_samples is not None
@@ -120,16 +131,37 @@ def _make_obj_grad(data, cfg: CorexConfig, strategy: str):
             "optimizer='auto' must be resolved against the data shapes "
             "before building the objective — call resolve_config(cfg, nv, "
             "device, n_samples=n) first (Corex.fit does)")
-    if not cfg.discourage_overlap:
-        _not_ported("discourage_overlap=False", "item 8 (overlap path)")
+    if cfg.matmul_dtype == "int8" and not isinstance(data,
+                                                     M.QuantizedData):
+        # the int8 mode is carried by the operand (ops.moments dispatches
+        # on QuantizedData); a plain tensor here would silently run f32
+        raise ValueError(
+            "matmul_dtype='int8' requires the quantized samples operand — "
+            "pass M.quantize_samples(x) (Corex.fit does this)")
+    if (cfg.stage_subsample < 1.0 and strategy == "samples"
+            and subsample_stride(cfg.stage_subsample) > 1
+            and len(cfg.anneal_schedule()) > 1):
+        # one operand for the whole schedule cannot honor the staging:
+        # Corex.fit realizes it in _fit_staged_subsample and hands the
+        # pieces stage_subsample=1 configs
+        raise ValueError(
+            "stage_subsample < 1 reached a one-program solver loop, "
+            "which runs the whole anneal schedule on one operand. Only "
+            "Corex.fit implements the two-program subsampled staging — "
+            "set stage_subsample=1 for other callers.")
     gram = strategy == "gram"
+    if not cfg.discourage_overlap:
+        # fixed_point + overlap is rejected by CorexConfig.__post_init__
+        fn = M.overlap_obj_grad_gram if gram else M.overlap_obj_grad_samples
+        return lambda ws, eps: fn(ws, data, eps, cfg.y_scale)
+    bf16 = cfg.matmul_dtype == "bfloat16"
     chain = chain_mode(cfg)
     if cfg.optimizer == "fixed_point":
         fn = M.ns_fp_gram if gram else M.ns_fp_samples
     else:
         fn = M.ns_obj_grad_gram if gram else M.ns_obj_grad_samples
     return lambda ws, eps: fn(ws, data, eps, cfg.y_scale, cfg.rho_clip,
-                              chain_kernel=chain)
+                              bf16=bf16, chain_kernel=chain)
 
 
 def _fit_program(data, w0, cfg: CorexConfig, strategy: str):
@@ -145,6 +177,109 @@ def _fit_program(data, w0, cfg: CorexConfig, strategy: str):
         mom = M.moments_from_cxy(ws, c_xy, cfg.y_scale, cfg.rho_clip)
         ws_sorted, order = sort_by_tcs(ws, mom.tcs)
         return ws_sorted, M.permute_moments(mom, order), diag
+
+
+def _spectral_init(data, omega, strategy: str, matmul_dtype: str):
+    """Randomized range-finder init (init='spectral'): W₀ = Qᵀ with
+    Q·R = Σ_emp·Ω for a random (p, m) block Ω, so the rows of W start
+    spanning the top-m subspace of Σ̂. One Σ-application through the
+    solver's own operator (any operand mode), then a thin QR."""
+    apply = M._apply_sigma_t(data, matmul_dtype == "bfloat16",
+                             strategy == "gram", omega.dtype)
+    with M.full_f32_matmul():
+        q, _ = torch.linalg.qr(apply(omega).to(omega.dtype))
+    return q.T.contiguous()
+
+
+def stage_subsample_active(cfg: CorexConfig, strategy: str) -> bool:
+    """Whether the two-program stage-subsample fit applies: the config
+    asks for it (stage_subsample < 1), the strategy is 'samples' (a Gram
+    operand carries no sample axis: warned and ignored), the fraction
+    drops rows (stride > 1: warned otherwise) and the schedule has a
+    non-final stage to subsample."""
+    if cfg.stage_subsample >= 1.0:
+        return False
+    if strategy != "samples":
+        warnings.warn(
+            f"stage_subsample={cfg.stage_subsample:g} is inert on the "
+            f"gram moment strategy: the p x p operand carries no sample "
+            f"axis (iteration cost is n-independent there). Use "
+            f"moment_strategy='samples' — or drop the knob; the fit "
+            f"proceeds on the full schedule unchanged.")
+        return False
+    if subsample_stride(cfg.stage_subsample) == 1:
+        warnings.warn(
+            f"stage_subsample={cfg.stage_subsample:g} rounds to row "
+            f"stride 1 (fractions > 2/3 keep every row) — no actual "
+            f"subsampling, so the staged two-program fit is skipped. "
+            f"Use a fraction <= 2/3 (e.g. 0.5, 0.25) or drop the knob.")
+        return False
+    return len(cfg.anneal_schedule()) > 1
+
+
+def subsample_stride(fraction: float) -> int:
+    """Row stride k for stage_subsample: rows x[::k], k = round(1/f)."""
+    return max(1, int(round(1.0 / float(fraction))))
+
+
+def subsample_len(n: int, fraction: float) -> int:
+    """len(x[::k]) for n rows."""
+    return -(-int(n) // subsample_stride(fraction))
+
+
+def _subsample_rows(data, fraction: float):
+    """The non-final-stage operand: every k-th row (deterministic, no RNG),
+    copied contiguous. QuantizedData keeps its per-tensor scale: the rows
+    are a subset of the same standardized X."""
+    k = subsample_stride(fraction)
+    if k == 1:
+        return data
+    if isinstance(data, M.QuantizedData):
+        return M.QuantizedData(q=data.q[::k].contiguous(), scale=data.scale)
+    return data[::k].contiguous()
+
+
+def _staged_subsample_cfgs(cfg: CorexConfig):
+    """(prefix_cfg, final_cfg) for the two-program stage-subsample fit:
+    the prefix runs anneal_schedule()[:-1] on the subsampled rows at the
+    non-final stage tol; the final stage runs on the full data at `tol`.
+    Both carry stage_subsample=1: the staging is realized by the operand
+    choice, so the guard in _make_obj_grad must not trip on them."""
+    sched = cfg.anneal_schedule()
+    tols = cfg.tol_schedule()
+    prefix = dataclasses.replace(cfg, eps_override=tuple(sched[:-1]),
+                                 tol=tols[0], stage_tol_factor=1.0,
+                                 stage_subsample=1.0)
+    final = dataclasses.replace(cfg, eps_override=float(sched[-1]),
+                                stage_tol_factor=1.0, stage_subsample=1.0)
+    return prefix, final
+
+
+def _fit_staged_subsample(data, w0, cfg: CorexConfig, strategy: str):
+    """Stage-subsample fit: the non-final anneal stages on every k-th row
+    (samples-path iteration cost is linear in n), the final stage on the
+    full data. Each program ends with a factor sort by tcs, as in the JAX
+    package (the float64 oracle mirrors the mid-sort). Returns (ws,
+    Moments, FitDiagnostics) with both programs' per-stage diagnostics
+    concatenated, so they cover the full schedule."""
+    prefix_cfg, final_cfg = _staged_subsample_cfgs(cfg)
+    n = (data.q if isinstance(data, M.QuantizedData) else data).shape[0]
+    p = w0.shape[1]
+    if cfg.optimizer == "fixed_point" and subsample_len(
+            n, cfg.stage_subsample) < p <= n:
+        warnings.warn(
+            f"stage_subsample={cfg.stage_subsample:g}: the anneal-prefix "
+            f"program runs on n_sub={subsample_len(n, cfg.stage_subsample)}"
+            f" < p={p} rows with optimizer='fixed_point' — the prefix "
+            f"selects the basin in the undersampled regime where "
+            f"fixed_point is measured to commit to worse optima. Use "
+            f"optimizer='momentum' (the undersampled-regime choice) or a "
+            f"larger fraction.")
+    data_sub = _subsample_rows(data, cfg.stage_subsample)
+    ws1, _, d1 = _fit_program(data_sub, w0, prefix_cfg, strategy)
+    ws, mom, d2 = _fit_program(data, ws1, final_cfg, strategy)
+    diag = FitDiagnostics(*[torch.cat([a, b]) for a, b in zip(d1, d2)])
+    return ws, mom, diag
 
 
 def _ctor_defaults():
@@ -298,6 +433,10 @@ class Corex:
                 raise ValueError(
                     f"Complex data not supported: {what} must be "
                     f"real-valued")
+            if x.dtype == object:
+                # numeric object arrays densify; strings raise numpy's
+                # could-not-convert ValueError
+                x = x.astype(np.float64)
             if self.pre_config.missing_values is None and x.ndim == 2 \
                     and not np.isfinite(x).all():
                 raise ValueError(
@@ -311,6 +450,10 @@ class Corex:
             raise ValueError(
                 f"expected a 2-D (n_samples, n_variables) array for "
                 f"{what}, got shape {tuple(x.shape)}")
+        if x.shape[1] == 0:
+            raise ValueError(
+                f"0 feature(s) (shape={tuple(x.shape)}) while a minimum of "
+                f"1 is required.")
         return self._as_tensor(x)
 
     def _as_tensor(self, a) -> torch.Tensor:
@@ -323,14 +466,16 @@ class Corex:
     def _prepare_fit(self, x):
         """Input validation, preprocessing (sets theta/nv/n_samples),
         moment-strategy choice and 'auto' resolution. Returns (data, cfg,
-        strategy) with data = X or the Gram matrix."""
+        strategy) with data the solver operand: X or the Gram matrix,
+        cast to bf16 under matmul_dtype='bfloat16' or quantized (after
+        preprocessing, whose standardized columns the per-tensor scale
+        relies on, and checked by the int32 wrap guard) under 'int8'."""
         x = self._to_tensor(x)
         self.n_samples, self.nv = x.shape
         if self.n_samples < 2:
             raise ValueError(f"need at least 2 samples to fit, got "
                              f"n_samples={self.n_samples}")
         if self.nv < self.m:
-            import warnings
             warnings.warn(
                 f"n_hidden={self.m} exceeds n_variables={self.nv}; "
                 f"surplus factors will converge to zero TC")
@@ -342,11 +487,17 @@ class Corex:
         xp, self.theta = P.fit_preprocess(x, pre.gaussianize,
                                           pre.missing_values)
         data = M.compute_gram(xp) if strategy == "gram" else xp
+        if cfg.matmul_dtype == "bfloat16":
+            data = data.to(torch.bfloat16)
+        elif cfg.matmul_dtype == "int8":
+            data = M.quantize_samples(data)
         return data, cfg, strategy
 
-    def _resolve_w0(self, init_ws) -> torch.Tensor:
+    def _resolve_w0(self, init_ws, data=None, strategy=None) -> torch.Tensor:
         """Initial weights: explicit init_ws > shape-matching pretrained
-        weights > a fresh seeded draw."""
+        weights > a fresh init per config.init ('random', or 'spectral',
+        which needs the prepared operand, so fit passes (data,
+        strategy))."""
         if init_ws is not None:
             w0 = self._as_tensor(init_ws)
             if tuple(w0.shape) != (self.m, self.nv):
@@ -360,6 +511,19 @@ class Corex:
             pre = self._as_tensor(pre)
             if tuple(pre.shape) == (self.m, self.nv):
                 return pre
+        if self.config.init == "spectral" and data is not None:
+            # Ω follows the random init's seeding: seeded → NumPy
+            # RandomState (the JAX package's Ω), unseeded → the device
+            if self.seed is None:
+                gen = torch.Generator(device=self._device)
+                gen.seed()
+                omega = torch.randn((self.nv, self.m), generator=gen,
+                                    dtype=self._dt, device=self._device)
+            else:
+                omega = self._as_tensor(np.random.RandomState(
+                    self.seed).normal(size=(self.nv, self.m)))
+            return _spectral_init(data, omega, strategy,
+                                  self.config.matmul_dtype)
         return self._init_ws(self.nv)
 
     def fit(self, x, y=None, init_ws=None, mesh=None, sharding_plan=None):
@@ -377,11 +541,13 @@ class Corex:
                 f"(n_hidden, n_variables) — pass initial weights as "
                 f"fit(x, init_ws=...); y is the ignored sklearn target")
         del y, sharding_plan
-        check_ported(self.config, self.pre_config, self.n_restarts, mesh)
+        check_ported(self.config, self.n_restarts, mesh)
         data, cfg, strategy = self._prepare_fit(x)
-        w0 = self._resolve_w0(init_ws)
-        self.ws, self.moments, self.diagnostics = _fit_program(
-            data, w0, cfg, strategy)
+        w0 = self._resolve_w0(init_ws, data=data, strategy=strategy)
+        fit = _fit_staged_subsample if stage_subsample_active(
+            cfg, strategy) else _fit_program
+        self.ws, self.moments, self.diagnostics = fit(data, w0, cfg,
+                                                      strategy)
         self.best_restart_ = 0
         if self.verbose:
             self._print_verbose()

@@ -1,6 +1,6 @@
 """The Linear CorEx moment system as plain PyTorch functions.
 
-Port of the float32/float64 core of `linearcorex_tpu/ops/moments.py`:
+Port of `linearcorex_tpu/ops/moments.py`:
 
 - The 'samples' path never forms the p x p covariance: C_xy = Xᵀ(X·Wᵀ)/n
   is two skinny GEMMs. The 'gram' path builds Σ = XᵀX/n once and applies
@@ -8,26 +8,36 @@ Port of the float32/float64 core of `linearcorex_tpu/ops/moments.py`:
 - Matmuls keep the JAX package's accumulation rule (`_mm`): at least
   float32, and float64 stays float64. Float32 matmuls run at full float32,
   never TF32 (`full_f32_matmul`).
+- Operand modes: `matmul_dtype='bfloat16'` runs the big GEMMs on bf16
+  operands with a float32 product (`_mm_bf16`); `matmul_dtype='int8'`
+  carries the operand as `QuantizedData` and runs int8 x int8 → int32
+  products (`_int8_mm`, through `torch._int_mm`). Either way the moment
+  chain receives a float32 C_xy.
 - The elementwise moment chain of the gradient and fixed-point paths can
   run through the hand-written CUDA kernel `ops.cuda_moments.ns_chain`
   (`chain_kernel=True`); on a CPU tensor that call takes the kernel's plain
   PyTorch twin.
+- The overlap objective (`overlap_obj_grad_*`) factors C_y with
+  `torch.linalg.cholesky_ex`; a factorization that fails yields NaN, as
+  `jnp.linalg.cholesky` does, so the solver rejects the step.
 
 Annealing enters analytically: C_xy ← (1−eps²)·⟨x·y⟩ + eps²·Wᵀ. `eps` may
 be a Python float or a 0-dim tensor of the compute dtype.
-
-The bf16 and int8 operand modes and the overlap objective are not ported
-yet (ROADMAP.md Queue 1, items 7 and 8).
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
+import warnings
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+
+_F32 = torch.float32
 
 
 @contextlib.contextmanager
@@ -48,6 +58,227 @@ def _mm(a, b):
     (>= float32 accumulation, float64 kept as float64)."""
     dt = torch.promote_types(a.dtype, b.dtype)
     return torch.matmul(a.to(dt), b.to(dt))
+
+
+@functools.cache
+def _cuda_mm_has_out_dtype() -> bool:
+    """Whether this torch build has `torch.mm(..., out_dtype=)` for CUDA
+    tensors (a bf16 x bf16 product returned in float32)."""
+    return torch._C._dispatch_has_kernel_for_dispatch_key("aten::mm.dtype",
+                                                         "CUDA")
+
+
+def _mm_bf16(a, b, out_dtype):
+    """Throughput-mode matmul: bf16 operands, float32 product, result in
+    `out_dtype`. torch's bf16 matmul rounds its output to bf16, so it is
+    not used: on CUDA `torch.mm(..., out_dtype=float32)` keeps the
+    float32 product (the tensor cores' accumulation is ~1e-5 of the
+    largest magnitude from exact at K = 10,000 on an H100); on the CPU
+    (or a torch without it) the bf16-rounded operands are multiplied in
+    float32."""
+    a16, b16 = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if a16.device.type == "cuda" and _cuda_mm_has_out_dtype():
+        out = torch.mm(a16, b16, out_dtype=_F32)
+    else:
+        out = torch.matmul(a16.to(_F32), b16.to(_F32))
+    return out.to(out_dtype)
+
+
+# ---------------------------------------------------------------------------
+# int8 quantized operand (matmul_dtype='int8')
+# ---------------------------------------------------------------------------
+
+class QuantizedData(NamedTuple):
+    """int8-quantized data operand: X (or Σ) ≈ scale · q, one scale for
+    the whole tensor. A per-tensor scale suits both operand kinds: the
+    solver standardizes X column by column, and the Gram matrix of
+    standardized data is a correlation matrix (entries in [−1, 1]).
+
+    Products accumulate in int32, so a contraction over p has a worst case
+    of 127²·p (it wraps beyond p ≈ 133k). `quantize_samples` guards this
+    when it quantizes (`_check_int8_wrap`): it raises on a demonstrated
+    wrap and warns on a merely possible one; use 'bfloat16' for data that
+    is not roughly standardized."""
+
+    q: torch.Tensor       # (n, p) samples or (p, p) Gram, int8
+    scale: torch.Tensor   # () float32
+
+
+_INT32_MAX = float(2 ** 31 - 1)
+
+
+def _round8(k: int) -> int:
+    return -(-k // 8) * 8
+
+
+def _padded(t, rows: int, cols: int):
+    """`t` in the top-left corner of a contiguous zero (rows, cols)
+    tensor."""
+    out = t.new_zeros((rows, cols))
+    out[:t.shape[0], :t.shape[1]] = t
+    return out
+
+
+def _int8_mm(a, b):
+    """The exact int32 product a (M, K) · b (K, N) of int8 matrices,
+    through `torch._int_mm`.
+
+    cuBLAS's int8 GEMM takes M > 16, K and N multiples of 8, a row-major
+    first operand and a column-major second one. Zero rows and columns
+    leave an integer product exact, so the operands are zero-padded up to
+    those shapes and the result sliced back; this runs on every device.
+    The second operand is copied into column-major layout (it is the thin
+    one on every path). A first operand that is not row-major, such as
+    the samples path's qᵀ, is copied too: a transient (p, n) int8 buffer,
+    n·p bytes, per call."""
+    m_, k_ = a.shape
+    n_ = b.shape[1]
+    mp, kp = max(m_, 17), _round8(k_)
+    if (mp, kp) != (m_, k_) or not a.is_contiguous():
+        a = _padded(a, mp, kp)
+    bt = _padded(b.T, _round8(n_), kp)      # (N, K) row-major = b col-major
+    return torch._int_mm(a, bt.T)[:m_, :n_]
+
+
+def _int8_abs_sum_bound(q) -> float:
+    """Guaranteed-safe int32 accumulation certificate: every contraction
+    the int8 paths run (q·vq over axis 1, qᵀ·tq over axis 0, both against
+    |operand| ≤ 127) is bounded in magnitude by 127 · max(row |q| sums,
+    col |q| sums). If that is ≤ int32 max, no application vector can wrap.
+    The sums are exact (int64)."""
+    a = torch.abs(q).to(torch.int64)
+    return 127.0 * float(torch.maximum(torch.amax(torch.sum(a, dim=0)),
+                                       torch.amax(torch.sum(a, dim=1))))
+
+
+def _int8_wrap_probe(q, u) -> float:
+    """Max relative disagreement between int32 and float32 accumulation of
+    the same int8 operands over both contraction axes. A wrap shows as an
+    O(1) relative error; float32 rounding is ~1e-6.
+
+    Probe vectors: random columns and data-aligned ones (one power-
+    iteration step, v = qᵀ·u), which model the solver's late-fit operands
+    (the columns of Wᵀ/AAᵀ align with the data's principal structure)."""
+    def one(a, b):
+        r32 = _int8_mm(a, b).to(_F32)
+        rf = torch.matmul(a.to(_F32), b.to(_F32))
+        return torch.amax(torch.abs(r32 - rf)) / torch.clamp(
+            torch.amax(torch.abs(rf)), min=1.0)
+
+    with full_f32_matmul():
+        qf = q.to(_F32)
+        v = torch.cat([u[:q.shape[1]], qf.T @ u[:q.shape[0]]], dim=1)
+        vq, _ = _quant_cols(v)
+        t = qf @ vq.to(_F32)
+        tq, _ = _quant_cols(t)
+        return float(torch.maximum(one(q, vq), one(q.T, tq)))
+
+
+def _check_int8_wrap(qd: QuantizedData) -> None:
+    """Guard against a silent int32 accumulator wrap (see
+    `QuantizedData`). The certificate first; only when it fails, a probe
+    of the actual int8 products with seeded random and data-aligned
+    vectors: raise on a demonstrated wrap, warn on a merely possible
+    one."""
+    q = qd.q
+    if q.ndim != 2:
+        return
+    bound = _int8_abs_sum_bound(q)
+    if bound <= _INT32_MAX:
+        return
+    u = torch.as_tensor(np.random.RandomState(0).normal(
+        size=(max(q.shape), 4)), dtype=_F32, device=q.device)
+    err = _int8_wrap_probe(q, u)
+    if err > 0.1:
+        raise ValueError(
+            f"int8 accumulation overflow: the quantized operand wraps the "
+            f"int32 accumulator on a data-aligned application vector "
+            f"(relative error {err:.2f} vs float accumulation) — int8 "
+            f"results on this data would be silently wrong. Use "
+            f"matmul_dtype='bfloat16' (or 'float32'). (Advanced: callers "
+            f"of the low-level functions can pre-quantize with "
+            f"quantize_samples(x, check_overflow=False), but the wrap is "
+            f"demonstrated, not hypothetical.)")
+    warnings.warn(
+        f"int8 accumulation COULD overflow: the guaranteed-safe bound "
+        f"127*max(|q| row/col sums) = {bound:.3g} exceeds int32 max "
+        f"({_INT32_MAX:.3g}). A random-vector probe found no wrap "
+        f"(relative error {err:.2g}), which is expected for standardized "
+        f"zero-mean data, but adversarially aligned application vectors "
+        f"could still wrap silently — prefer matmul_dtype='bfloat16' if "
+        f"the data is not approximately standardized-Gaussian-like")
+
+
+def _div127(a):
+    """a / 127, correctly rounded on every device. (CUDA turns a division
+    by a Python scalar into a product with its reciprocal, one bit off;
+    a bit of the scale decides where values round to int8, so the card
+    would quantize differently from the CPU and the JAX package.)"""
+    return a / torch.full((), 127.0, dtype=a.dtype, device=a.device)
+
+
+def _quantize(x):
+    """Abs-max scale, then round/clip/cast: (q int8, scale () float32)."""
+    s = torch.clamp(_div127(torch.amax(torch.abs(x)).to(_F32)), min=1e-30)
+    q = torch.clamp(torch.round(x.to(_F32) / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def quantize_samples(x, check_overflow: bool = True) -> QuantizedData:
+    """Quantize a standardized samples matrix (or a correlation-scaled
+    Gram matrix, see `quantize_gram`) to int8 with one global scale.
+    check_overflow=True (default) runs the int32 wrap guard
+    (`_check_int8_wrap`)."""
+    q, s = _quantize(x)
+    qd = QuantizedData(q=q, scale=s)
+    if check_overflow:
+        _check_int8_wrap(qd)
+    return qd
+
+
+def quantize_gram(g, check_overflow: bool = True) -> QuantizedData:
+    """Quantize a Gram/correlation matrix to int8 (per-tensor scale:
+    correlation entries live in [−1, 1], so the range is homogeneous)."""
+    return quantize_samples(g, check_overflow=check_overflow)
+
+
+def _quant_cols(v):
+    """Per-column int8 quantization of an application operand (the
+    columns of Wᵀ/AAᵀ span very different magnitudes, unlike X's)."""
+    s = torch.clamp(_div127(torch.amax(torch.abs(v), dim=0)), min=1e-30)
+    q = torch.clamp(torch.round(v / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def _apply_sigma_int8(qd: QuantizedData, v):
+    """v (p, k) float32 ↦ Σ_emp·v through two int8 products (int32
+    accumulation), samples operand. Scales factor out of the
+    contractions: X ≈ sx·q and v ≈ q_v·diag(s_v) give
+    X·v ≈ sx·(q·q_v)·diag(s_v); the intermediate is re-quantized per
+    column for the second product."""
+    vq, sv = _quant_cols(v)
+    t = _int8_mm(qd.q, vq).to(_F32) * (qd.scale * sv)[None, :]
+    tq, st = _quant_cols(t)
+    r = _int8_mm(qd.q.T, tq)
+    return r.to(_F32) * (qd.scale * st)[None, :] / qd.q.shape[0]
+
+
+def _apply_gram_int8(qd: QuantizedData, v):
+    """v (p, k) float32 ↦ Σ·v through one int8 product (Gram operand)."""
+    vq, sv = _quant_cols(v)
+    return _int8_mm(qd.q, vq).to(_F32) * (qd.scale * sv)[None, :]
+
+
+def _apply_int8(qd: QuantizedData, v, gram: bool):
+    return _apply_gram_int8(qd, v) if gram else _apply_sigma_int8(qd, v)
+
+
+def _dequantized(x):
+    """Float32 view of a quantized operand (the one-time exact paths:
+    final moments). Plain tensors pass through."""
+    if isinstance(x, QuantizedData):
+        return x.q.to(_F32) * x.scale
+    return x
 
 
 class Moments(NamedTuple):
@@ -95,7 +326,9 @@ def _anneal(c0, wt, eps):
 
 def cxy_samples(x, ws, eps):
     """C_xy = Xᵀ(X·Wᵀ)/n, annealed; the p x p covariance is never
-    formed."""
+    formed. A QuantizedData operand is dequantized here (the one-time
+    exact path: final moments)."""
+    x = _dequantized(x)
     n = x.shape[0]
     y = _mm(x, ws.T)                                              # n x m
     c_xy = _mm(x.T, y) / n                                        # p x m
@@ -104,8 +337,8 @@ def cxy_samples(x, ws, eps):
 
 def cxy_gram(gram, ws, eps):
     """C_xy = Σ·Wᵀ, annealed: one O(p²·m) GEMM against the precomputed
-    Gram matrix."""
-    return _anneal(_mm(gram, ws.T), ws.T, eps)
+    Gram matrix. A QuantizedData operand is dequantized here."""
+    return _anneal(_mm(_dequantized(gram), ws.T), ws.T, eps)
 
 
 def compute_gram(x):
@@ -189,17 +422,36 @@ def _ns_gradient_terms(mom: Moments):
     return aa, hmat, coef, torch.sqrt(mom.z2)
 
 
-def _cxy_eff(data, ws, eps, gram):
-    """Annealed effective cross-moment C_xy = Σ_eff·Wᵀ from X (samples)
-    or Σ (gram)."""
-    return cxy_gram(data, ws, eps) if gram else cxy_samples(data, ws, eps)
-
-
-def _apply_sigma_t(data, gram):
-    """v (p, k) ↦ Σ_emp·v (un-annealed; callers blend eps themselves)."""
+def _cxy_eff(data, ws, eps, bf16, gram):
+    """Annealed effective cross-moment C_xy = Σ_eff·Wᵀ from X (samples),
+    Σ (gram), either one in bf16, or int8-quantized: the one definition
+    every objective and fixed-point entry point shares."""
+    if isinstance(data, QuantizedData):
+        return _anneal(_apply_int8(data, ws.T, gram).to(ws.dtype), ws.T, eps)
+    if not bf16:
+        return cxy_gram(data, ws, eps) if gram else cxy_samples(data, ws,
+                                                                eps)
     if gram:
+        c0 = _mm_bf16(data, ws.T, ws.dtype)
+    else:
+        y = _mm_bf16(data, ws.T, ws.dtype)
+        c0 = _mm_bf16(data.T, y, ws.dtype) / data.shape[0]
+    return _anneal(c0, ws.T, eps)
+
+
+def _apply_sigma_t(data, bf16, gram, dtype):
+    """v (p, k) ↦ Σ_emp·v for the operand mode (un-annealed; callers
+    blend eps themselves)."""
+    if isinstance(data, QuantizedData):
+        return lambda v: _apply_int8(data, v, gram).to(dtype)
+    if gram:
+        if bf16:
+            return lambda v: _mm_bf16(data, v, dtype)
         return lambda v: _mm(data, v)
     n = data.shape[0]
+    if bf16:
+        return lambda v: _mm_bf16(data.T, _mm_bf16(data, v, dtype),
+                                  dtype) / n
     return lambda v: _mm(data.T, _mm(data, v)) / n
 
 
@@ -237,29 +489,40 @@ def _ns_obj_grad_chain(ws, c_xy, apply_sigma_t, eps, y_scale, rho_clip):
     return objective, grad_t.T, tc
 
 
-def ns_obj_grad_samples(ws, x, eps, y_scale, rho_clip, chain_kernel=False):
+def ns_obj_grad_samples(ws, x, eps, y_scale, rho_clip, bf16=False,
+                        chain_kernel=False):
     """(objective, gradient, TC) of the non-overlap objective, samples
-    path: 4 skinny GEMMs (2 for the moments, 2 for AA·Σ_eff)."""
-    return _ns_obj_grad(ws, x, eps, y_scale, rho_clip, chain_kernel,
+    path: 4 skinny GEMMs (2 for the moments, 2 for AA·Σ_eff). bf16=True
+    runs them on bfloat16 operands with float32 products; an int8
+    QuantizedData `x` runs them as int8 products."""
+    return _ns_obj_grad(ws, x, eps, y_scale, rho_clip, bf16, chain_kernel,
                         gram=False)
 
 
-def ns_obj_grad_gram(ws, gram, eps, y_scale, rho_clip, chain_kernel=False):
+def ns_obj_grad_gram(ws, gram, eps, y_scale, rho_clip, bf16=False,
+                     chain_kernel=False):
     """Same as `ns_obj_grad_samples` on the precomputed Gram matrix:
     2 O(p²·m) GEMMs per evaluation, independent of n."""
-    return _ns_obj_grad(ws, gram, eps, y_scale, rho_clip, chain_kernel,
-                        gram=True)
+    return _ns_obj_grad(ws, gram, eps, y_scale, rho_clip, bf16,
+                        chain_kernel, gram=True)
 
 
-def _ns_obj_grad(ws, data, eps, y_scale, rho_clip, chain_kernel, gram):
-    c_xy = _cxy_eff(data, ws, eps, gram)
+def _ns_obj_grad(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel,
+                 gram):
+    c_xy = _cxy_eff(data, ws, eps, bf16, gram)
     if chain_kernel:
-        return _ns_obj_grad_chain(ws, c_xy, _apply_sigma_t(data, gram), eps,
-                                  y_scale, rho_clip)
+        return _ns_obj_grad_chain(
+            ws, c_xy, _apply_sigma_t(data, bf16, gram, ws.dtype), eps,
+            y_scale, rho_clip)
     mom = moments_from_cxy(ws, c_xy, y_scale, rho_clip)
     aa, hmat, coef, sqz = _ns_gradient_terms(mom)
-    if gram:
-        aas = _mm(aa, data)
+    if isinstance(data, QuantizedData):
+        aas = _apply_int8(data, aa.T, gram).T.to(ws.dtype)
+    elif gram:
+        aas = _mm_bf16(aa, data, ws.dtype) if bf16 else _mm(aa, data)
+    elif bf16:
+        aas = _mm_bf16(_mm_bf16(aa, data.T, ws.dtype), data,
+                       ws.dtype) / data.shape[0]
     else:
         aas = _mm(_mm(aa, data.T), data) / data.shape[0]
     aas = _anneal(aas, aa, eps)
@@ -272,15 +535,15 @@ def _ns_obj_grad(ws, data, eps, y_scale, rho_clip, chain_kernel, gram):
 # Damped fixed-point update (optimizer='fixed_point')
 # ---------------------------------------------------------------------------
 
-def ns_fp_parts(ws, data, eps, y_scale, rho_clip, chain_kernel=False,
-                gram=False):
+def ns_fp_parts(ws, data, eps, y_scale, rho_clip, bf16=False,
+                chain_kernel=False, gram=False):
     """Pieces of the closed-form fixed-point target, before the m x m
     solve. Setting the gradient to zero with rho = diag(1/sqz)·W·Σ_eff
     gives Ŵ = diag(sqz)·(diag(coef) − H)⁻¹·AA. Returns (objective, tc,
     a_mat (m, m), aa_t (p, m), sqz (m,)). a_mat is near-singular once
     surplus factors have died; the damped accept/reject iteration
     tolerates the inexact inverse."""
-    c_xy = _cxy_eff(data, ws, eps, gram)
+    c_xy = _cxy_eff(data, ws, eps, bf16, gram)
     return fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip, chain_kernel)
 
 
@@ -307,20 +570,87 @@ def fp_target_from_parts(ws, a_mat_inv, aa_t, sqz):
     return ws - target
 
 
-def ns_fp_samples(ws, x, eps, y_scale, rho_clip, chain_kernel=False):
+def ns_fp_samples(ws, x, eps, y_scale, rho_clip, bf16=False,
+                  chain_kernel=False):
     """(objective, ws − Ŵ, TC) for the damped fixed-point update, samples
     path. The solver's plain-GD step turns the direction into
     (1−γ)·ws + γ·Ŵ."""
-    return _ns_fp(ws, x, eps, y_scale, rho_clip, chain_kernel, gram=False)
+    return _ns_fp(ws, x, eps, y_scale, rho_clip, bf16, chain_kernel,
+                  gram=False)
 
 
-def ns_fp_gram(ws, gram, eps, y_scale, rho_clip, chain_kernel=False):
+def ns_fp_gram(ws, gram, eps, y_scale, rho_clip, bf16=False,
+               chain_kernel=False):
     """Gram-path fixed-point update: one O(p²·m) GEMM per iteration."""
-    return _ns_fp(ws, gram, eps, y_scale, rho_clip, chain_kernel, gram=True)
+    return _ns_fp(ws, gram, eps, y_scale, rho_clip, bf16, chain_kernel,
+                  gram=True)
 
 
-def _ns_fp(ws, data, eps, y_scale, rho_clip, chain_kernel, gram):
+def _ns_fp(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram):
     obj, tc, a_mat, aa_t, sqz = ns_fp_parts(
-        ws, data, eps, y_scale, rho_clip, chain_kernel, gram)
+        ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram)
     return obj, fp_target_from_parts(ws, torch.linalg.inv(a_mat), aa_t,
                                      sqz), tc
+
+
+# ---------------------------------------------------------------------------
+# Overlapping (discourage_overlap=False) objective: the exact Gaussian
+# bound, with m x m solves and never a p x p one
+# ---------------------------------------------------------------------------
+
+def _cholesky_or_nan(cy):
+    """Lower Cholesky factor of C_y, or all-NaN where C_y is not positive
+    definite — what `jnp.linalg.cholesky` returns. The objective is then
+    NaN, `f_new <= f` is False and the solver rejects the step, as in the
+    JAX package. `cholesky_ex` reports the failure in `info` on the
+    device, so this costs no host sync."""
+    chol, info = torch.linalg.cholesky_ex(cy)
+    return torch.where(info == 0, chol, torch.nan)
+
+
+def _overlap_core(ws, b, cy_chol, y_scale):
+    """F and the shared terms given B = Σ_eff·Wᵀ and chol(C_y)."""
+    m = ws.shape[0]
+    bm = torch.cholesky_solve(b.T, cy_chol, upper=False).T       # p x m
+    v = torch.clamp(1.0 - torch.sum(bm * b, dim=1), min=1e-12)
+    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(cy_chol)))
+    f = 0.5 * torch.sum(torch.log(v)) + 0.5 * logdet \
+        - m * torch.log(torch.tensor(y_scale, dtype=ws.dtype,
+                                     device=ws.device))
+    return f, bm, v
+
+
+def _overlap_from_b(ws, b, eps, y_scale, apply_sigma):
+    """The overlap objective and gradient from the annealed B;
+    `apply_sigma(g)` maps an (m, p) matrix to g·Σ_emp."""
+    mdim = ws.shape[0]
+    cy = _mm(ws, b) + (y_scale ** 2) * torch.eye(mdim, dtype=ws.dtype,
+                                                 device=ws.device)
+    chol = _cholesky_or_nan(cy)
+    f, bm, v = _overlap_core(ws, b, chol, y_scale)
+    g_lhs = (bm / v[:, None]).T                                  # m x p
+    gs = _anneal(apply_sigma(g_lhs), g_lhs, eps)
+    k = _mm(g_lhs, b)
+    mbt = torch.cholesky_solve(b.T, chol, upper=False)           # m x p
+    grad = -gs + _mm(k, mbt) + mbt
+    return f, grad, -f
+
+
+def overlap_obj_grad_samples(ws, x, eps, y_scale):
+    """(objective, gradient, TC proxy) of the exact Gaussian objective.
+
+    ∇F = −(M Bᵀ V)·Σ_eff + (M Bᵀ V B M)·Bᵀ + M·Bᵀ with M = C_y⁻¹,
+    V = diag(1/v) (derivation in the JAX package's oracle)."""
+    n = x.shape[0]
+    b = _anneal(_mm(x.T, _mm(x, ws.T)) / n, ws.T, eps)
+    return _overlap_from_b(ws, b, eps, y_scale,
+                           lambda g: _mm(_mm(g, x.T), x) / n)
+
+
+def overlap_obj_grad_gram(ws, gram, eps, y_scale):
+    """Gram-path variant of `overlap_obj_grad_samples`. Σ·Wᵀ keeps the
+    working dtype. (The JAX package's product rounds it to float32 in
+    every dtype, so in float64 the two differ at ~1e-7; the port agrees
+    with the float64 oracle instead.)"""
+    b = _anneal(_mm(gram, ws.T), ws.T, eps)
+    return _overlap_from_b(ws, b, eps, y_scale, lambda g: _mm(g, gram))

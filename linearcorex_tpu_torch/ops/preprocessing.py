@@ -1,9 +1,10 @@
 """Preprocessing for Linear CorEx, as plain PyTorch functions.
 
-Port of `linearcorex_tpu/ops/preprocessing.py`: 'none', 'standard' and
-'outliers' gaussianization plus sentinel-value mean imputation. Theta
-(mean, std) is fitted once and reapplied at transform time. The rank-based
-'empirical' mode is not ported yet (ROADMAP.md Queue 1, item 2).
+Port of `linearcorex_tpu/ops/preprocessing.py`: 'none', 'standard',
+'outliers' and 'empirical' gaussianization plus sentinel-value mean
+imputation. Theta (mean, std) is fitted once and reapplied at transform
+time; 'empirical' ranks each batch it is given, at fit and at transform
+time alike, as the JAX package does.
 """
 
 from __future__ import annotations
@@ -19,13 +20,6 @@ class Theta(NamedTuple):
 
     mean: torch.Tensor  # p
     std: torch.Tensor   # p
-
-
-def _empirical_not_ported():
-    raise NotImplementedError(
-        "gaussianize='empirical' is not ported to the PyTorch package yet "
-        "(ROADMAP.md Queue 1, item 2); use 'standard', 'outliers' or "
-        "'none', or the JAX package linearcorex_tpu")
 
 
 def mean_impute(x: torch.Tensor, missing_values: float) -> torch.Tensor:
@@ -56,15 +50,35 @@ def soft_clip(z: torch.Tensor, t: float = 4.0) -> torch.Tensor:
                        torch.sign(z) * (t + torch.tanh(torch.abs(z) - t)))
 
 
+def rankdata_average(x: torch.Tensor) -> torch.Tensor:
+    """Average-tie ranks of each column of x (n, p), float64
+    (scipy.stats.rankdata per column): rank = (#less + #less_or_equal +
+    1)/2, from one sort and two binary searches per column. Works in
+    (p, n) layout, as `torch.searchsorted` searches the last dimension."""
+    xt = x.T.contiguous()
+    s = torch.sort(xt, dim=1).values
+    lo = torch.searchsorted(s, xt, side="left")
+    hi = torch.searchsorted(s, xt, side="right")
+    return (0.5 * (lo + hi + 1).to(torch.float64)).T
+
+
+def empirical_gaussianize(x: torch.Tensor) -> torch.Tensor:
+    """Rank-based gaussianization: Φ⁻¹((rank − 0.5)/n) per column,
+    computed in float64 and returned in x's dtype and row-major layout."""
+    n = x.shape[0]
+    return torch.special.ndtri((rankdata_average(x) - 0.5) / n).to(
+        x.dtype).contiguous()
+
+
 def preprocess(x: torch.Tensor, gaussianize: str, theta: Theta,
                missing_values: Optional[float] = None) -> torch.Tensor:
     """Apply the fitted preprocessing (transform-time path)."""
-    if gaussianize == "empirical":
-        _empirical_not_ported()
     if missing_values is not None:
         x = mean_impute(x, missing_values)
     if gaussianize == "none":
         return x
+    if gaussianize == "empirical":
+        return empirical_gaussianize(x)
     z = (x - theta.mean[None, :]) / theta.std[None, :]
     if gaussianize == "standard":
         return z
@@ -74,8 +88,6 @@ def preprocess(x: torch.Tensor, gaussianize: str, theta: Theta,
 def fit_preprocess(x: torch.Tensor, gaussianize: str,
                    missing_values: Optional[float] = None):
     """Fit theta on x and return (x_preprocessed, theta)."""
-    if gaussianize == "empirical":
-        _empirical_not_ported()
     if missing_values is not None:
         x = mean_impute(x, missing_values)
     if gaussianize == "none":
@@ -83,6 +95,8 @@ def fit_preprocess(x: torch.Tensor, gaussianize: str,
         theta = Theta(mean=x.new_zeros(p), std=x.new_ones(p))
         return x, theta
     theta = fit_theta(x)
+    if gaussianize == "empirical":
+        return empirical_gaussianize(x), theta
     z = (x - theta.mean[None, :]) / theta.std[None, :]
     if gaussianize == "standard":
         return z, theta

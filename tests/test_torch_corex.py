@@ -118,6 +118,28 @@ def test_transform_and_details_match_jax(data):
         assert np.abs(md[key].numpy() - want).max() < TOL64 * scale, key
 
 
+@pytest.mark.parametrize("kwargs", [
+    dict(matmul_dtype="int8", tol=1e-4),
+    dict(discourage_overlap=False, max_iter=500),
+])
+def test_corex_from_numpy_carries_jax_int8_and_overlap_fits(kwargs, data,
+                                                            tmp_path):
+    """A JAX int8 fit and a JAX overlap fit, carried across: transform
+    within 1e-6 of the JAX model's, tc and clusters equal."""
+    j = lc.Corex(n_hidden=8, seed=1, **kwargs).fit(data)
+    path = tmp_path / "model.npz"
+    save_corex(j, str(path))
+    with np.load(path) as z:
+        state = {k: z[k] for k in z.files}
+    c = lct.corex_from_numpy(state, n_hidden=8, device="cpu", **kwargs)
+    x2 = block_data(n=200, p=64, m=8, seed=4)
+    want = np.asarray(j.transform(x2))
+    assert np.abs(c.transform(x2).numpy() - want).max() \
+        <= 1e-6 * max(1.0, np.abs(want).max())
+    assert c.tc == float(j.tc)
+    assert np.array_equal(c.clusters.numpy(), np.asarray(j.clusters))
+
+
 def test_corex_from_numpy_carries_a_jax_fit(data, tmp_path):
     """A JAX-fitted model's save_corex arrays build a port model that
     transforms like the JAX model and reports the same TC and clusters."""
@@ -173,19 +195,66 @@ def test_resolve_config_per_device():
 
 @pytest.mark.parametrize("kwargs,fit_kwargs", [
     (dict(n_restarts=2), {}),
-    (dict(init="spectral", anneal=False), {}),
-    (dict(stage_subsample=0.5, moment_strategy="samples"), {}),
-    (dict(discourage_overlap=False), {}),
-    (dict(matmul_dtype="bfloat16"), {}),
-    (dict(matmul_dtype="int8"), {}),
-    (dict(gaussianize="empirical"), {}),
-    (dict(preset="throughput"), {}),
     ({}, dict(mesh=object())),
+    (dict(matmul_precision="high"), {}),
 ])
 def test_unported_options_raise(kwargs, fit_kwargs, data):
     c = lct.Corex(n_hidden=4, device="cpu", **kwargs)
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         c.fit(data, **fit_kwargs)
+
+
+@pytest.mark.parametrize("kwargs,bar", [
+    (dict(init="spectral", anneal=False), 1e-3),
+    (dict(stage_subsample=0.5, moment_strategy="samples"), 1e-3),
+    (dict(discourage_overlap=False), 1e-3),
+    (dict(matmul_dtype="bfloat16", optimizer="fixed_point", tol=1e-4),
+     1e-3),
+    (dict(matmul_dtype="int8", optimizer="fixed_point", tol=1e-4), 1e-3),
+    (dict(gaussianize="empirical"), 1e-3),
+    (dict(preset="throughput"), 1e-3),
+])
+def test_formerly_unported_options_fit_and_match_jax(kwargs, bar, data):
+    """Each option that raised NotImplementedError before now fits on the
+    CPU and gives the JAX fit's clusters, with TC within `bar` relative
+    (the float32 bar of tests/test_parity.py; the operand modes run the
+    fixed point, whose TC quantization noise does not scatter — see
+    tests/test_torch_operands.py)."""
+    c = lct.Corex(n_hidden=8, seed=0, device="cpu", **kwargs).fit(data)
+    j = lc.Corex(n_hidden=8, seed=0, **kwargs).fit(data)
+    assert np.array_equal(c.clusters.numpy(), np.asarray(j.clusters))
+    assert abs(c.tc - float(j.tc)) <= bar * abs(float(j.tc)), (
+        c.diagnostics.iters_per_stage.tolist(),
+        np.asarray(j.diagnostics.iters_per_stage).tolist())
+
+
+def test_zero_width_input_raises_as_jax():
+    x = np.zeros((10, 0))
+    with pytest.raises(ValueError, match="0 feature") as want:
+        lc.Corex(n_hidden=2).fit(x)
+    with pytest.raises(ValueError, match="0 feature") as got:
+        lct.Corex(n_hidden=2, device="cpu").fit(x)
+    assert "minimum of 1 is required" in str(want.value)
+    assert "minimum of 1 is required" in str(got.value)
+    fitted = lct.Corex(n_hidden=2, device="cpu", max_iter=5).fit(
+        np.random.RandomState(0).normal(size=(10, 3)))
+    with pytest.raises(ValueError, match="0 feature"):
+        fitted.transform(torch.zeros((4, 0)))
+
+
+def test_object_array_fits_as_jax(data):
+    """A numeric dtype=object array densifies to float64 and fits: the
+    same TC in float64 as the JAX package."""
+    x = data.astype(object)
+    w0 = _shared_init(8, 64)
+    c = lct.Corex(n_hidden=8, dtype="float64", device="cpu").fit(
+        x, init_ws=w0)
+    j = lc.Corex(n_hidden=8, dtype="float64").fit(x, init_ws=w0)
+    assert abs(c.tc - float(j.tc)) < TOL64
+    assert np.array_equal(c.clusters.numpy(), np.asarray(j.clusters))
+    with pytest.raises(ValueError):
+        lct.Corex(n_hidden=2, device="cpu").fit(
+            np.array([["a", "b"], ["c", "d"]], dtype=object))
 
 
 def test_cuda_device_without_cuda_raises(data):

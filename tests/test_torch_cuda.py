@@ -8,7 +8,11 @@ machine without JAX:
 
 The kernel is held to its plain PyTorch twin at 1e-5 of the largest
 magnitude (the JAX package's kernel-test bound) and must give bitwise-equal
-outputs on a repeated launch.
+outputs on a repeated launch. The operand modes are held to the same calls
+on the CPU: int8 products bitwise, their scaled results to 1e-6 relative;
+the bf16 product must come back in float32, within 1e-5 of the float32
+product of the bf16-rounded operands (a bf16-rounded output misses by
+~1e-3).
 """
 
 import numpy as np
@@ -17,6 +21,8 @@ import torch
 
 import linearcorex_tpu_torch as lct
 from linearcorex_tpu_torch.ops import cuda_moments as CM
+from linearcorex_tpu_torch.ops import moments as TM
+from linearcorex_tpu_torch.ops import preprocessing as TP
 from linearcorex_tpu_torch.utils import build
 
 RHO_CLIP = 1 - 1e-6
@@ -103,3 +109,104 @@ def test_fit_on_card_goes_through_kernel_and_agrees():
         x, init_ws=w0)
     assert np.array_equal(gpu.clusters.cpu().numpy(), cpu.clusters.numpy())
     assert abs(gpu.tc - cpu.tc) / abs(cpu.tc) < 1e-3
+
+
+def _standardized(n, p, seed=0):
+    x = np.random.RandomState(seed).normal(size=(n, p))
+    x[:, 1:] += x[:, :1]                    # some correlation
+    return ((x - x.mean(0)) / x.std(0)).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,p,k", [(2000, 1024, 64), (1500, 999, 7)])
+def test_int8_products_on_card_match_cpu(n, p, k):
+    _need_cuda()
+    x = _standardized(n, p)
+    g = x.T @ x / n
+    v = np.random.RandomState(1).normal(scale=0.1, size=(p, k)).astype(
+        np.float32)
+    for data, apply in ((x, TM._apply_sigma_int8), (g, TM._apply_gram_int8)):
+        qc = TM.quantize_samples(torch.from_numpy(data))
+        qg = TM.quantize_samples(torch.from_numpy(data).cuda())
+        assert torch.equal(qg.q.cpu(), qc.q)
+        vq, _ = TM._quant_cols(torch.from_numpy(v))
+        assert torch.equal(TM._int8_mm(qg.q, vq.cuda()).cpu(),
+                           TM._int8_mm(qc.q, vq))
+        assert torch.equal(TM._int8_mm(qg.q.T, qg.q[:, :k]).cpu(),
+                           TM._int8_mm(qc.q.T, qc.q[:, :k]))
+        want = apply(qc, torch.from_numpy(v))
+        got = apply(qg, torch.from_numpy(v).cuda()).cpu()
+        assert got.dtype == torch.float32
+        assert float((got - want).abs().max()) \
+            <= 1e-6 * float(want.abs().max())
+
+
+@pytest.mark.cuda
+def test_mm_bf16_on_card_returns_float32():
+    _need_cuda()
+    rng = np.random.RandomState(2)
+    a = torch.from_numpy(rng.normal(size=(1024, 1024)).astype(np.float32))
+    b = torch.from_numpy(rng.normal(size=(1024, 96)).astype(np.float32))
+    a, b = a.cuda(), b.cuda()
+    with TM.full_f32_matmul():
+        got = TM._mm_bf16(a, b, torch.float32)
+        want = a.bfloat16().float() @ b.bfloat16().float()
+        rounded = (a.bfloat16() @ b.bfloat16()).float()
+    scale = float(want.abs().max())
+    assert got.dtype == torch.float32
+    assert float((got - want).abs().max()) < 1e-5 * scale
+    # the bound is tight enough to catch a bf16-rounded output
+    assert float((rounded - want).abs().max()) > 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_empirical_on_card_matches_cpu():
+    _need_cuda()
+    x = np.round(np.random.RandomState(3).lognormal(size=(400, 30)), 1)
+    want, _ = TP.fit_preprocess(torch.from_numpy(x), "empirical")
+    got, _ = TP.fit_preprocess(torch.from_numpy(x).cuda(), "empirical")
+    assert float((got.cpu() - want).abs().max()) < 1e-12
+    got32, _ = TP.fit_preprocess(torch.from_numpy(x).float().cuda(),
+                                 "empirical")
+    assert float((got32.cpu().double() - want).abs().max()) < 1e-6
+
+
+@pytest.mark.cuda
+def test_overlap_non_pd_cy_gives_nan_on_card():
+    _need_cuda()
+    gram = torch.diag(torch.tensor([4.0] * 4 + [-4.0] * 4)).cuda()
+    ws = torch.zeros((2, 8), device="cuda")
+    ws[0, 4] = ws[1, 5] = 1.0            # C_y = −3·I
+    f, g, tc = TM.overlap_obj_grad_gram(ws, gram, 0.0, 1.0)
+    assert bool(torch.isnan(f)) and bool(torch.isnan(g).all())
+    ws[0, 4] = ws[1, 5] = 0.1            # C_y = 0.96·I, positive definite
+    f, g, tc = TM.overlap_obj_grad_gram(ws, gram, 0.0, 1.0)
+    assert bool(torch.isfinite(f)) and bool(torch.isfinite(g).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chain", ["always", "never"])
+@pytest.mark.parametrize("strategy", ["gram", "samples"])
+@pytest.mark.parametrize("mode", ["int8", "bfloat16"])
+def test_operand_mode_fit_on_card(mode, strategy, chain):
+    """An int8 or bf16 fit on the card (fixed point, block data n=1000,
+    p=64, m=4), gram or samples, through the chain kernel or the plain
+    chain, agrees with the same fit on the CPU: same clusters, TC within
+    1e-2 relative (the fit stops at tol=1e-4 under quantization noise: on
+    the CPU alone the plain and the kernel's twin chain differ by 6e-3 in
+    bf16 on this data). Only 'always' launches the kernel."""
+    _need_cuda()
+    rng = np.random.RandomState(0)
+    z = rng.normal(size=(1000, 4))
+    x = np.repeat(z, 16, axis=1) * 0.9 + np.sqrt(1 - 0.81) * rng.normal(
+        size=(1000, 64))
+    w0 = np.random.RandomState(42).normal(scale=1 / 8, size=(4, 64))
+    kw = dict(n_hidden=4, matmul_dtype=mode, optimizer="fixed_point",
+              tol=1e-4, moment_strategy=strategy)
+    before = CM.ns_chain.launches
+    gpu = lct.Corex(use_pallas=chain, device="cuda", **kw).fit(
+        x, init_ws=w0)
+    assert (CM.ns_chain.launches > before) == (chain == "always")
+    cpu = lct.Corex(device="cpu", **kw).fit(x, init_ws=w0)
+    assert np.array_equal(gpu.clusters.cpu().numpy(), cpu.clusters.numpy())
+    assert abs(gpu.tc - cpu.tc) <= 1e-2 * abs(cpu.tc)

@@ -14,6 +14,13 @@ non-zero and does not print the final line.
              (p, m) = (10000, 512), (400, 100), (999, 7), (257, 130):
              max|kernel - twin| / max|twin| < 1e-5 for every output, and
              a second launch bitwise equal to the first.
+   kernels_lanes  the lane entry (every lane in one launch per pass)
+             against the batched twin at (k, p, m) = (4, 10000, 512),
+             (3, 999, 7) and (32, 1024, 8), the last a padded selection
+             grid whose 5 zero W rows per lane must give exactly zero AA
+             rows and H entries: within 1e-5 for every output, every lane
+             bitwise equal to a one-lane launch on its inputs, a second
+             launch bitwise equal to the first.
 4. operands  the int8 and bf16 products on the card at (p, m) = (10000,
              512) and (999, 7): quantize_gram, _quant_cols and every int8
              product bitwise equal to the same call on the CPU, the scaled
@@ -33,20 +40,47 @@ non-zero and does not print the final line.
              wrap guard silently. The share of blocks landing whole in one
              cluster is reported against a bar of 0.95 (see BLOCKS_BAR).
              The float32 fit with use_pallas='never' is reported beside it.
+   fit_restarts  Corex(n_hidden=512, n_restarts=4, seed=0,
+             optimizer='auto').fit(x) on the same data in float32 and
+             with matmul_dtype='int8': each must run the lane kernel,
+             resolve the fixed point, keep the lane of the highest TC
+             (best_restart_), give a finite TC and transform, and pass the
+             int8 wrap guard silently. Reported: the winner's block share
+             against BLOCKS_BAR, the sweep's wall and peak device memory
+             against four single fits with seeds 0-3.
+   serving   on the float32 north-star model: predict/inverse_transform
+             finite; covariance_matmat of 8 random columns equal to
+             get_covariance() @ V within 1e-5 relative; the first and
+             last covariance_blocks(4096) blocks equal to those rows of
+             get_covariance(); score(x) finite and above the score of x
+             with its columns shuffled.
 6. small     small fits on the card (n=2000, p=256, m=8) against the
              port's float64 CPU fit from the same W0 — same clusters, TC
              within 1e-3 relative: the non-overlap fit through the kernel
              ('small_reference'); the overlap objective (momentum, gram
              and samples), 'empirical' preprocessing and stage_subsample
-             =0.5 ('small_paths').
+             =0.5 ('small_paths'); 3-lane restart sweeps, non-overlap
+             through the lane kernel and overlap, against the float64
+             CPU sweep from the same seeds: same clusters, TC within
+             1e-3, and a winning lane that is a best lane on the CPU too
+             ('small_restarts').
+   selection pick_n_hidden on block data with n=2000, p=1024 and 4
+             planted blocks of 256 (max_n_hidden=8, repeat=4,
+             max_iter=2000), padded and sequential, criterion 'tc' and
+             'heldout': each runs the lane kernel, and padded and
+             sequential choose the same n_hidden per criterion. Reported:
+             whether it is 4, and the walls.
 7. timing    fit_core iterations/s at p=10k, m=512 (gram, fixed_point,
              anneal=False, tol=0, 200 iterations): float32 with the kernel
              and with the plain chain, bf16 and int8 with the kernel; CUDA
              events, an untimed warm-up, min of 3, the versions in turns.
-             The kernel alone against its twin, the same way.
-8. profile   torch.profiler over 20 such iterations per operand mode:
-             wall, device-busy and idle time per iteration and the
-             kernels that take the most device time.
+             The kernel alone against its twin, the same way. The lane
+             kernel at (4, 10000, 512) against four one-lane launches and
+             against the batched twin; fit_core on 4 lanes (float32 and
+             int8, 100 iterations) against the one-lane fit_core.
+8. profile   torch.profiler over 20 such iterations per operand mode and
+             for 4 float32 lanes: wall, device-busy and idle time per
+             iteration and the kernels that take the most device time.
 
 Before the last line it prints the kernels' summary line and the card's
 `nvidia-smi` name and power limit; the last line is
@@ -70,7 +104,10 @@ DATA_SEED = 0
 # small fit on the card agrees with the float64 CPU fit.
 BLOCKS_BAR = 0.95
 TIMED_ITERS = 200
+TIMED_ITERS_LANES = 100
 PROFILED_ITERS = 20
+LANES = 4               # restart lanes of the north-star sweep
+SEL_N, SEL_P, SEL_BLOCKS = 2000, 1024, 4
 SMALL_TOL_REL = 1e-3    # card f32 fit vs the port's float64 CPU fit
 # _mm_bf16 on the card vs the exact (float64) product of the bf16-rounded
 # operands, relative to its largest magnitude. The tensor cores' float32
@@ -97,13 +134,16 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def chain_inputs(p, m, seed=1):
+def chain_inputs(p, m, seed=1, dead=0):
     """Moment-chain inputs made as the JAX package's kernel tests make
-    them: C_xy from standardized Gaussian data and random weights."""
+    them: C_xy from standardized Gaussian data and random weights. The
+    last `dead` factors get zero weights (a padded selection lane)."""
     import numpy as np
     import torch
     rng = np.random.RandomState(seed)
     w = rng.normal(scale=0.1, size=(m, p))
+    if dead:
+        w[m - dead:] = 0.0
     x = rng.normal(size=(600, p))
     x = (x - x.mean(0)) / x.std(0)
     cxy = x.T @ (x @ w.T) / 600
@@ -221,28 +261,134 @@ def check_operands(p, m, n, dev):
     return out
 
 
-def north_star_fit(x, **kw):
+def north_star_fit(x, seed=0, **kw):
     """One annealed fit at the north-star shape through `Corex.fit`, with
-    the chain kernel's launch count set to 0 just before and read just
-    after. Returns (model, launches, seconds, warnings raised)."""
+    the chain kernel's launch counts set to 0 just before and read just
+    after. Returns (model, launches, seconds, warnings raised); launches
+    counts the lane entry's launches for a restart sweep (n_restarts in
+    kw), the one-lane entry's otherwise. Peak device memory of the fit is
+    left in torch.cuda.max_memory_allocated()."""
     import warnings
 
     import torch
     import linearcorex_tpu_torch as lct
     from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
 
-    model = lct.Corex(n_hidden=M, seed=0, tol=FIT_TOL,
+    model = lct.Corex(n_hidden=M, seed=seed, tol=FIT_TOL,
                       max_iter=FIT_MAX_ITER, device="cuda", **kw)
     torch.cuda.synchronize()
-    ns_chain.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ns_chain.launches = ns_chain.lane_launches = 0
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         model.fit(x)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = ns_chain.launches
+    sweep = kw.get("n_restarts", 1) > 1
+    launches = ns_chain.lane_launches if sweep else ns_chain.launches
+    check(not sweep or ns_chain.launches == 0,
+          "a restart sweep launched the one-lane kernel")
     return model, launches, seconds, [str(w.message) for w in rec]
+
+
+def restart_sweeps(x, card):
+    """Phase fit_restarts: the north-star sweep in float32 and int8 through
+    Corex(n_restarts=4).fit, each against four single fits (seeds 0-3).
+    The lanes' TCs are read where the fit picks its winner
+    (parallel.restarts.best_restart). Returns {path: lane launches}."""
+    import numpy as np
+    import torch
+    from linearcorex_tpu_torch.parallel import restarts as R
+
+    launches = {}
+    real = R.best_restart
+    for name, kw in (("fit_restarts", {}),
+                     ("fit_restarts_int8", dict(matmul_dtype="int8"))):
+        seen = {}
+
+        def recording(ws_b, mom_b, diag_b):
+            seen["lane_tc"] = mom_b.tc.tolist()
+            seen["lane_iters"] = diag_b.iters_per_stage.sum(-1).tolist()
+            return real(ws_b, mom_b, diag_b)
+
+        R.best_restart = recording
+        try:
+            model, launches[name], sweep_s, msgs = north_star_fit(
+                x, optimizer="auto", n_restarts=LANES, **kw)
+        finally:
+            R.best_restart = real
+        sweep_peak = torch.cuda.max_memory_allocated()
+        fields = check_north_star(name, model, launches[name], x, None)
+        check(model.best_restart_ == int(np.argmax(seen["lane_tc"])),
+              f"{name}: best_restart_={model.best_restart_} is not the "
+              f"argmax of the lanes' TC {seen['lane_tc']}")
+        guard = [w for w in msgs if "overflow" in w]
+        check(not guard, f"{name}: the int8 wrap guard spoke: {guard}")
+        singles = []
+        for r in range(LANES):
+            one, _, s1, _ = north_star_fit(x, seed=r, optimizer="auto", **kw)
+            singles.append(dict(
+                seed=r, tc=one.tc, n_iter=one.n_iter_, seconds=s1,
+                blocks_whole=blocks_whole(one.clusters.cpu().numpy()),
+                peak_bytes=torch.cuda.max_memory_allocated()))
+            del one
+        single_s = sum(o["seconds"] for o in singles)
+        single_peak = max(o["peak_bytes"] for o in singles)
+        emit(name, lanes=LANES, best_restart=model.best_restart_,
+             lane_tc=seen["lane_tc"], lane_iters=seen["lane_iters"],
+             sweep_seconds=sweep_s, singles_seconds=single_s,
+             sweep_over_singles=sweep_s / single_s,
+             peak_bytes_sweep=sweep_peak, peak_bytes_single=single_peak,
+             bytes_per_extra_lane=(sweep_peak - single_peak) / (LANES - 1),
+             singles=singles, warnings=msgs, card=card,
+             **{k: v for k, v in fields.items() if k != "tc_f32_same_w0"})
+        del model
+    return launches
+
+
+def serving(model, x, card):
+    """Phase serving, on the float32 north-star model."""
+    import torch
+
+    y = model.transform(x)
+    xr = model.predict(y)
+    check(tuple(xr.shape) == (N, P) and bool(torch.isfinite(xr).all()),
+          "predict is not finite")
+    check(torch.equal(model.inverse_transform(y), xr),
+          "inverse_transform differs from predict")
+    dense = model.get_covariance()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    v = torch.randn((P, 8), generator=gen, device="cuda")
+    from linearcorex_tpu_torch.ops import moments as Mo
+    with Mo.full_f32_matmul():
+        want = dense @ v
+    got = model.covariance_matmat(v)
+    matmat_rel = float((got - want).abs().max() / want.abs().max())
+    check(matmat_rel < 1e-5, f"covariance_matmat is off by {matmat_rel:.3e}"
+          f" relative to get_covariance() @ V (bound 1e-5)")
+    blocks = list(model.covariance_blocks(4096))
+    check([s for s, _ in blocks] == list(range(0, P, 4096)),
+          "covariance_blocks starts")
+    block_rel = {}
+    for start, rows in (blocks[0], blocks[-1]):
+        ref = dense[start:start + rows.shape[0]]
+        block_rel[start] = float((rows - ref).abs().max() / ref.abs().max())
+        check(rows.shape == ref.shape and block_rel[start] < 1e-5,
+              f"covariance_blocks at {start} is off by "
+              f"{block_rel[start]:.3e} (bound 1e-5)")
+    perm = torch.randperm(P, generator=gen, device="cuda")
+    score = float(model.score(x))
+    shuffled = float(model.score(x[:, perm]))
+    check(score == score and abs(score) < float("inf"),
+          f"score is not finite: {score}")
+    check(score > shuffled, f"score {score} is not above the score of the "
+          f"column-shuffled data {shuffled}")
+    emit("serving", predict_finite=True, matmat_rel_err=matmat_rel,
+         block_rel_err=block_rel,
+         blocks_bitwise=[bool(torch.equal(rows, dense[s:s + rows.shape[0]]))
+                         for s, rows in (blocks[0], blocks[-1])],
+         score=score, score_shuffled=shuffled, card=card)
 
 
 def check_north_star(name, model, launches, x, tc_f32):
@@ -308,6 +454,84 @@ def small_fits(card):
               f"CPU fit")
 
 
+def small_restarts(card):
+    """3-lane sweeps on the card against the port's float64 CPU sweep
+    (phase small_restarts). The non-overlap lanes of this data reach one
+    optimum (TC equal to 1e-9 in float64), so the card's winning lane is
+    held to being a best lane on the CPU: its float64 single fit's TC
+    within SMALL_TOL_REL of the CPU sweep's. Returns {path: launches}."""
+    import numpy as np
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+
+    rng = np.random.RandomState(3)
+    xs = np.repeat(rng.normal(size=(2000, 8)), 32, axis=1) * 0.9 \
+        + 0.436 * rng.normal(size=(2000, 256))
+    launches = {}
+    for name, overlap in (("small_restarts", False),
+                          ("small_restarts_overlap", True)):
+        kw = dict(n_hidden=8, n_restarts=3, seed=0, max_iter=2000,
+                  discourage_overlap=not overlap)
+        ns_chain.launches = ns_chain.lane_launches = 0
+        gpu = lct.Corex(device="cuda", **kw).fit(xs)
+        launches[name] = ns_chain.lane_launches
+        cpu = lct.Corex(dtype="float64", device="cpu", **kw).fit(xs)
+        lane = lct.Corex(dtype="float64", device="cpu", **dict(
+            kw, n_restarts=1, seed=gpu.best_restart_)).fit(xs)
+        rel_tc = abs(gpu.tc - cpu.tc) / abs(cpu.tc)
+        lane_rel = abs(lane.tc - cpu.tc) / abs(cpu.tc)
+        same = bool(np.array_equal(gpu.clusters.cpu().numpy(),
+                                   cpu.clusters.numpy()))
+        emit("small_restarts", path=name, best_restart_card=gpu.best_restart_,
+             best_restart_cpu=cpu.best_restart_, tc_card=gpu.tc,
+             tc_cpu_f64=cpu.tc, tc_rel_diff=rel_tc, clusters_equal=same,
+             card_lane_on_cpu_rel=lane_rel, lane_launches=launches[name],
+             card=card)
+        check(same and rel_tc < SMALL_TOL_REL and lane_rel < SMALL_TOL_REL,
+              f"small sweep '{name}' on the card disagrees with the float64 "
+              f"CPU sweep")
+        check(overlap or launches[name] > 0,
+              f"{name}: the sweep never launched the lane kernel")
+    return launches
+
+
+def selection(dev, card):
+    """Phase selection: pick_n_hidden, padded and sequential, under both
+    criteria. Returns {path: lane launches}."""
+    import torch
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+
+    x = block_data(SEL_N, SEL_P, SEL_BLOCKS, seed=DATA_SEED + 2, dev=dev)
+    launches, best, walls = {}, {}, {}
+    for criterion in ("tc", "heldout"):
+        for padded in (True, False):
+            name = f"selection_{criterion}_{'padded' if padded else 'seq'}"
+            torch.cuda.synchronize()
+            ns_chain.launches = ns_chain.lane_launches = 0
+            t0 = time.perf_counter()
+            best[name], scores = lct.pick_n_hidden(
+                x, repeat=4, max_n_hidden=8, max_iter=2000, seed=0,
+                padded_sweep=padded, criterion=criterion, device="cuda")
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            launches[name] = ns_chain.lane_launches
+            check(launches[name] > 0 and ns_chain.launches == 0,
+                  f"{name}: the sweep did not run on the lane kernel")
+            emit("selection", path=name, best_n=best[name],
+                 planted=SEL_BLOCKS, scores=scores.tolist(),
+                 wall_seconds=walls[name], lane_launches=launches[name],
+                 card=card)
+        pad, seq = (best[f"selection_{criterion}_{k}"]
+                    for k in ("padded", "seq"))
+        check(pad == seq, f"selection '{criterion}': the padded sweep chose "
+              f"{pad}, the sequential loop {seq}")
+    emit("selection_summary", n=SEL_N, p=SEL_P, best_n=best,
+         found_planted={k: v == SEL_BLOCKS for k, v in best.items()},
+         walls=walls, card=card)
+    return launches
+
+
 def timed_operands(dev):
     """The north-star operands for the timing and profile phases: the Gram
     matrix of standardized block data in each mode, and a seeded W0."""
@@ -345,10 +569,11 @@ def fit_core_runner(data, w0, matmul_dtype, use_pallas, iters):
     return run, out
 
 
-def profile_iterations(data, w0, mode, card):
+def profile_iterations(data, w0, mode, card, label=None):
     """torch.profiler over PROFILED_ITERS north-star iterations of one
-    operand mode (after an untimed warm-up): wall, device-busy and idle
-    ms per iteration and the top kernels by device time."""
+    operand mode (after an untimed warm-up; W0 (k, m, p) profiles k
+    lanes): wall, device-busy and idle ms per iteration and the top
+    kernels by device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -369,7 +594,7 @@ def profile_iterations(data, w0, mode, card):
     evals = PROFILED_ITERS + 1
     busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / evals
     wall_ms = wall * 1e3 / evals
-    emit("profile", mode=mode, evaluations=evals, wall_ms=wall_ms,
+    emit("profile", mode=label or mode, evaluations=evals, wall_ms=wall_ms,
          device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
          top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3 / evals,
                "calls": e.count / evals} for e in kernels[:10]], card=card)
@@ -431,6 +656,44 @@ def main():
         emit("kernels", p=p, m=m, rel_err=rel, bound=TOL_REL,
              bitwise_repeatable=True)
 
+    # 3b. the lane entry
+    lanes_err = 0.0
+    for k, p, m, dead in ((LANES, P, M, 0), (3, 999, 7, 0),
+                          (32, SEL_P, 8, 5)):
+        lanes_in = [chain_inputs(p, m, seed=1 + lane, dead=dead)
+                    for lane in range(k)]
+        cxy, ry, sqz = (torch.stack(t) for t in zip(*lanes_in))
+        del lanes_in
+        got = ns_chain(cxy, ry, sqz, 1 - 1e-6)
+        again = ns_chain(cxy, ry, sqz, 1 - 1e-6)
+        want = ns_chain_reference(cxy, ry, sqz, 1 - 1e-6)
+        torch.cuda.synchronize()
+        rel = {}
+        for name, g, g2, w in zip(names, got, again, want):
+            check(g.shape == w.shape, f"lanes {name} shape {tuple(g.shape)}"
+                  f" at ({k}, {p}, {m}), want {tuple(w.shape)}")
+            err = float(torch.max(torch.abs(g - w)))
+            lanes_err = max(lanes_err, err)
+            rel[name] = err / (float(torch.max(torch.abs(w))) + 1e-12)
+            check(rel[name] < TOL_REL, f"lanes {name} at ({k}, {p}, {m}) is "
+                  f"off by {rel[name]:.3e} relative (bound {TOL_REL:g})")
+            check(torch.equal(g, g2), f"lanes {name} at ({k}, {p}, {m}) "
+                  f"differs between two launches on the same inputs")
+        for lane in range(k):
+            one = ns_chain(cxy[lane], ry[lane], sqz[lane], 1 - 1e-6)
+            for name, g, o in zip(names, got, one):
+                check(torch.equal(g[lane], o), f"lanes {name} at ({k}, {p}, "
+                      f"{m}): lane {lane} differs from a one-lane launch")
+        if dead:
+            check(bool((got[0][:, :, m - dead:] == 0).all())
+                  and bool((got[1][:, m - dead:, :] == 0).all())
+                  and bool((got[1][:, :, m - dead:] == 0).all()),
+                  "zero W rows gave non-zero AA rows or H entries")
+        emit("kernels_lanes", lanes=k, p=p, m=m, zero_rows=dead,
+             rel_err=rel, bound=TOL_REL, lanes_bitwise_single=True,
+             bitwise_repeatable=True)
+        del cxy, ry, sqz, got, again, want
+
     # 4. operands
     for p, m, n in ((P, M, N), (999, 7, 1500)):
         emit("operands", p=p, m=m, n=n, **check_operands(p, m, n, dev))
@@ -438,12 +701,14 @@ def main():
     # 5. fit: the main paths through the entry points a user calls
     x = block_data(N, P, BLOCKS, seed=DATA_SEED, dev=dev)
     launches = {}
-    model, launches["fit"], fit_s, _ = north_star_fit(x, optimizer="auto")
-    tc_f32 = model.tc
+    model_f32, launches["fit"], fit_s, _ = north_star_fit(x,
+                                                          optimizer="auto")
+    tc_f32 = model_f32.tc
     emit("fit", n=N, p=P, m=M, data_seed=DATA_SEED, max_iter=FIT_MAX_ITER,
-         tol=FIT_TOL, strategy="gram", optimizer=model.resolved_optimizer_,
-         fit_seconds=fit_s, card=card,
-         **check_north_star("fit", model, launches["fit"], x, tc_f32))
+         tol=FIT_TOL, strategy="gram",
+         optimizer=model_f32.resolved_optimizer_, fit_seconds=fit_s,
+         card=card,
+         **check_north_star("fit", model_f32, launches["fit"], x, tc_f32))
 
     for name, kw in (("fit_int8", dict(matmul_dtype="int8")),
                      ("fit_bf16", dict(matmul_dtype="bfloat16"))):
@@ -490,12 +755,18 @@ def main():
          n_iter=plain.n_iter_,
          blocks_whole=blocks_whole(plain.clusters.cpu().numpy()),
          fit_seconds=plain_s, card=card)
-    del x, model, plain, thr
+    del model, plain, thr
+
+    lane_launches = restart_sweeps(x, card)
+    serving(model_f32, x, card)
+    del x, model_f32
 
     # 6. small fits on the card against the port's float64 CPU fit
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         small_fits(card)
+        lane_launches.update(small_restarts(card))
+        lane_launches.update(selection(dev, card))
 
     # 7. timing
     operands, w0 = timed_operands(dev)
@@ -534,9 +805,55 @@ def main():
     emit("timing_kernel", p=P, m=M, kernel_ms=kernel_ms, plain_ms=plain_ms,
          card=card)
 
+    lanes_in = [chain_inputs(P, M, seed=1 + lane) for lane in range(LANES)]
+    cxy4, ry4, sqz4 = (torch.stack(t) for t in zip(*lanes_in))
+    del lanes_in
+    lane_ms = singles_ms = twin_ms = float("inf")
+    for which in ("twin", "singles", "lanes", "lanes", "singles", "twin"):
+        if which == "lanes":
+            lane_ms = min(lane_ms, time_ms(
+                lambda: ns_chain(cxy4, ry4, sqz4, 1 - 1e-6), inner=10))
+        elif which == "singles":
+            singles_ms = min(singles_ms, time_ms(
+                lambda: [ns_chain(cxy4[i], ry4[i], sqz4[i], 1 - 1e-6)
+                         for i in range(LANES)], inner=10))
+        else:
+            twin_ms = min(twin_ms, time_ms(
+                lambda: ns_chain_reference(cxy4, ry4, sqz4, 1 - 1e-6),
+                inner=10))
+    emit("timing_kernel_lanes", lanes=LANES, p=P, m=M, lanes_ms=lane_ms,
+         single_launches_ms=singles_ms, twin_ms=twin_ms, card=card)
+    del cxy4, ry4, sqz4
+
+    from linearcorex_tpu_torch.parallel.restarts import init_restarts
+    w0_lanes = init_restarts(LANES, M, P, 0, torch.float32, dev)
+    variants = [(mode, lanes) for mode in ("float32", "int8")
+                for lanes in (False, True)]
+    rates = {v: [] for v in variants}
+    for turn in (variants, variants[::-1], variants):
+        for mode, lanes in turn:
+            run, out = fit_core_runner(operands[mode],
+                                       w0_lanes if lanes else w0, mode,
+                                       "always", TIMED_ITERS_LANES)
+            ms = time_ms(run, reps=1, warmup=not rates[(mode, lanes)])
+            n_it = int(out["diag"].iters_per_stage[..., 0].max())
+            rates[(mode, lanes)].append(n_it / (ms / 1e3))
+    emit("timing_fit_core_lanes", p=P, m=M, lanes=LANES, strategy="gram",
+         optimizer="fixed_point", iters=TIMED_ITERS_LANES,
+         it_per_s_single_f32=max(rates[("float32", False)]),
+         it_per_s_lanes_f32=max(rates[("float32", True)]),
+         lane_it_per_s_f32=LANES * max(rates[("float32", True)]),
+         it_per_s_single_int8=max(rates[("int8", False)]),
+         it_per_s_lanes_int8=max(rates[("int8", True)]),
+         lane_it_per_s_int8=LANES * max(rates[("int8", True)]),
+         all_turns={f"{m}/{'lanes' if ln else 'single'}": r
+                    for (m, ln), r in rates.items()}, card=card)
+
     # 8. profile
     for mode in ("float32", "bfloat16", "int8"):
         profile_iterations(operands[mode], w0, mode, card)
+    profile_iterations(operands["float32"], w0_lanes, "float32", card,
+                       label=f"float32_{LANES}_lanes")
 
     print(json.dumps({"kernels": [{
         "name": "ns_chain", "route": "cuda",
@@ -544,7 +861,14 @@ def main():
         "replaces": "linearcorex_tpu/ops/pallas_moments.py:114",
         "launches": sum(launches.values()),
         "launches_per_path": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}]}), flush=True)
+        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "name": "ns_chain_lanes", "route": "cuda",
+        "source": "linearcorex_tpu_torch/csrc/ns_chain.cu",
+        "replaces": "linearcorex_tpu/ops/pallas_moments.py:114",
+        "launches": sum(lane_launches.values()),
+        "launches_per_path": lane_launches, "max_abs_err": lanes_err,
+        "ms": lane_ms, "plain_ms": twin_ms,
+        "single_launches_ms": singles_ms}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,13 @@ It imports torch and never JAX. Usage:
     c = lct.Corex(n_hidden=8, seed=0).fit(x)          # device="cuda"
     y = c.transform(x)
     c.tc, c.tcs, c.mis, c.clusters
+    best = lct.Corex(n_hidden=8, n_restarts=4, seed=0).fit(x)  # 4 lanes
+    n, scores = lct.pick_n_hidden(x, repeat=4, max_n_hidden=8, seed=0)
 """
 
 from linearcorex_tpu_torch.config import CorexConfig, PreprocessConfig
 from linearcorex_tpu_torch.models.corex import Corex, NotFittedError
+from linearcorex_tpu_torch.models.selection import pick_n_hidden
 from linearcorex_tpu_torch.utils.interop import corex_from_numpy
 
 __all__ = [
@@ -20,4 +23,5 @@ __all__ = [
     "PreprocessConfig",
     "NotFittedError",
     "corex_from_numpy",
+    "pick_n_hidden",
 ]

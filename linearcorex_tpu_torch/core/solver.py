@@ -10,6 +10,17 @@ the stopping predicate, the momentum reset on a rejected step, the step
 growth and halving, and delta = inf on a reject. Step sizes and
 tolerances are kept in the compute dtype (numpy scalars), so a fit stays
 step-matched with the JAX package and the float64 oracle.
+
+Restart lanes: `fit_core` given W0 of shape (k, m, p) runs k fits side
+by side, as `jax.vmap` runs the JAX package's `fit_core`. Every lane keeps
+its own step size, iteration count, delta and accept state; each
+iteration evaluates every lane, and a lane whose own stopping predicate
+is false stays frozen (W, objective, gradient, momentum, TC, step size,
+count, delta and history unchanged) until every lane of the stage is
+done; then all lanes enter the next stage. One host read per iteration
+fetches the k accept flags and the k step sizes. So in float64 lane r
+runs the iterations of the single fit from W0[r], stage by stage. The
+diagnostics gain a leading lane axis.
 """
 
 from __future__ import annotations
@@ -26,7 +37,8 @@ ObjGrad = Callable[[torch.Tensor, torch.Tensor],
 
 
 class FitDiagnostics(NamedTuple):
-    """Per-stage record of a fit; the same fields as the JAX package's."""
+    """Per-stage record of a fit; the same fields as the JAX package's.
+    A lane-batched fit gives each field a leading lane axis."""
 
     iters_per_stage: torch.Tensor     # (n_stages,) int32
     tc_per_stage: torch.Tensor        # (n_stages,)
@@ -89,42 +101,118 @@ def _stage(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
         if cfg.record_history:
             hist.append(tc)
         it += 1
-    return ws, (it, tc, delta, f, hist)
+    row = torch.zeros((cfg.max_iter if cfg.record_history else 0,),
+                      dtype=ws0.dtype, device=ws0.device)
+    if hist:
+        row[:len(hist)] = torch.stack(hist)
+    return ws, (it, tc, delta, f, row)
+
+
+def _stage_lanes(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
+                 eps: torch.Tensor, tol):
+    """`_stage` for k lanes side by side, ws0 (k, m, p): the rules of
+    `_stage` applied to every lane on its own, a lane frozen once its own
+    predicate is false, until no lane runs. A frozen lane is evaluated at
+    its current W (a no-op step) and its evaluation discarded."""
+    npdt = _np_dtype(ws0)
+    dev, dt = ws0.device, ws0.dtype
+    k = ws0.shape[0]
+    momentum = cfg.optimizer == "momentum"
+    fixed_point = cfg.optimizer == "fixed_point"
+    lr = np.full(k, cfg.fp_gamma_init if fixed_point else cfg.lr_init,
+                 dtype=npdt)
+    lr_cap = npdt.type(cfg.fp_gamma_cap if fixed_point else cfg.lr_cap)
+    growth, halve = npdt.type(cfg.lr_growth), npdt.type(cfg.lr_halve)
+    lr_min = npdt.type(cfg.lr_min)
+
+    ws = ws0
+    f, g, tc = obj_grad(ws0, eps)
+    v = torch.zeros_like(ws0)
+    it = np.zeros(k, dtype=np.int64)
+    delta = np.full(k, np.inf, dtype=npdt)
+    hist = []
+    while True:
+        run = (it < cfg.max_iter) & (delta >= tol) & (lr >= lr_min)
+        if not run.any():
+            break
+        # one transfer to the device: the k step sizes and run flags
+        host = torch.as_tensor(np.concatenate([lr, run]).astype(npdt))
+        lr_t, run_t = host.to(dev).split(k)
+        lr_t, run_t = lr_t[:, None, None], run_t > 0
+        run3 = run_t[:, None, None]
+        if momentum:
+            v_new = cfg.momentum_beta * v - lr_t * g
+            ws_new = torch.where(run3, ws + v_new, ws)
+        else:
+            ws_new = torch.where(run3, ws - lr_t * g, ws)
+        f_new, g_new, tc_new = obj_grad(ws_new, eps)
+        step = torch.amax(torch.abs(ws_new - ws), dim=(-2, -1))
+        keep = (f_new <= f) & run_t
+        # one host read: the k accept flags and the k step sizes
+        flags = torch.stack([keep.to(dt), step]).cpu().numpy()
+        accept = flags[0] > 0
+        keep3 = keep[:, None, None]
+        ws = torch.where(keep3, ws_new, ws)
+        f = torch.where(keep, f_new, f)
+        g = torch.where(keep3, g_new, g)
+        tc = torch.where(keep, tc_new, tc)
+        if momentum:
+            v = torch.where(keep3, v_new, torch.where(run3, 0.0, v))
+        reject = run & ~accept
+        delta = np.where(accept, flags[1].astype(npdt),
+                         np.where(reject, npdt.type(np.inf), delta))
+        lr = np.where(accept, np.minimum(lr * growth, lr_cap),
+                      np.where(reject, lr * halve, lr)).astype(npdt)
+        it = it + run
+        if cfg.record_history:
+            hist.append(tc)
+    row = torch.zeros((k, cfg.max_iter if cfg.record_history else 0),
+                      dtype=dt, device=dev)
+    if hist:
+        # a lane runs the first it[r] iterations of the stage, then rests
+        h = torch.stack(hist, dim=1)
+        cols = torch.arange(h.shape[1], device=dev)[None, :]
+        lim = torch.as_tensor(it, device=dev)[:, None]
+        row[:, :h.shape[1]] = torch.where(cols < lim, h, 0.0)
+    return ws, (it, tc, delta, f, row)
 
 
 def fit_core(obj_grad: ObjGrad, w0: torch.Tensor, cfg: CorexConfig):
     """Full annealed fit: every stage of cfg.anneal_schedule() in turn,
-    each run to its cfg.tol_schedule() tolerance. Returns (ws,
-    FitDiagnostics)."""
+    each run to its cfg.tol_schedule() tolerance. W0 of shape (k, m, p)
+    runs k lanes (`_stage_lanes`). Returns (ws, FitDiagnostics)."""
     npdt = _np_dtype(w0)
     dev, dt = w0.device, w0.dtype
+    stage = _stage_lanes if w0.ndim == 3 else _stage
     schedule = np.asarray(cfg.anneal_schedule(), dtype=npdt)
     tols = np.asarray(cfg.tol_schedule(), dtype=npdt)
-    hist_len = cfg.max_iter if cfg.record_history else 0
     ws = w0
     iters, tcs, deltas, objs, hists = [], [], [], [], []
     for eps, tol in zip(schedule, tols):
         eps_t = torch.tensor(eps, dtype=dt, device=dev)
-        ws, (it, tc, delta, f, hist) = _stage(obj_grad, cfg, ws, eps_t, tol)
-        row = torch.zeros((hist_len,), dtype=dt, device=dev)
-        if hist:
-            row[:len(hist)] = torch.stack(hist)
+        ws, (it, tc, delta, f, row) = stage(obj_grad, cfg, ws, eps_t, tol)
         iters.append(it)
         tcs.append(tc)
-        deltas.append(float(delta))
+        deltas.append(delta)
         objs.append(f)
         hists.append(row)
+    eps_schedule = torch.as_tensor(schedule, device=dev)
+    if w0.ndim == 3:
+        eps_schedule = eps_schedule.expand(w0.shape[0], -1).contiguous()
     diag = FitDiagnostics(
-        iters_per_stage=torch.tensor(iters, dtype=torch.int32),
-        tc_per_stage=torch.stack(tcs),
-        delta_per_stage=torch.tensor(deltas, dtype=dt, device=dev),
-        objective_per_stage=torch.stack(objs),
-        tc_history=torch.stack(hists),
-        eps_schedule=torch.as_tensor(schedule, device=dev))
+        iters_per_stage=torch.as_tensor(np.stack(iters, axis=-1),
+                                        dtype=torch.int32),
+        tc_per_stage=torch.stack(tcs, dim=-1),
+        delta_per_stage=torch.as_tensor(np.stack(deltas, axis=-1),
+                                        dtype=dt, device=dev),
+        objective_per_stage=torch.stack(objs, dim=-1),
+        tc_history=torch.stack(hists, dim=-2),
+        eps_schedule=eps_schedule)
     return ws, diag
 
 
 def sort_by_tcs(ws: torch.Tensor, tcs: torch.Tensor):
-    """Reorder factors by decreasing per-factor TC."""
-    order = torch.argsort(-tcs, stable=True)
-    return ws[order], order
+    """Reorder factors by decreasing per-factor TC (per lane for ws
+    (k, m, p) and tcs (k, m))."""
+    order = torch.argsort(-tcs, dim=-1, stable=True)
+    return torch.take_along_dim(ws, order[..., :, None], dim=-2), order

@@ -39,10 +39,21 @@
 //
 // Passes: rr → qij GEMM (into the AA buffer) → row pass (S_i, Q_i, α, β,
 // AA, rr·α, log v_i, column partials) → H GEMM (partials over p ranges)
-// → reduce. Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3
-// -shared -Xcompiler -fPIC (linearcorex_tpu_torch/utils/build.py). The C
-// entry points take raw pointers and a cudaStream_t and return a
-// cudaError_t.
+// → reduce.
+//
+// Restart lanes (lcx_ns_chain_lanes): k independent problems of one shape,
+// stored lane after lane, run in one launch per pass. The lane is one more
+// grid index (blockIdx.z of the qij GEMM, folded with the p ranges into
+// blockIdx.z in the H pass; blockIdx.y of the rr, row and reduce passes),
+// and it only offsets each pointer to that lane's slice of the
+// inputs, outputs and scratch. So a block computes exactly what it computes
+// in a single-lane launch: lane l's outputs are bitwise those of
+// lcx_ns_chain on lane l's inputs, and no value (a NaN of a diverged lane
+// included) crosses lanes. lcx_ns_chain is the one-lane case.
+//
+// Built with: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared
+// -Xcompiler -fPIC (linearcorex_tpu_torch/utils/build.py). The C entry
+// points take raw pointers and a cudaStream_t and return a cudaError_t.
 
 #include <cuda_runtime.h>
 
@@ -143,9 +154,21 @@ Plan make_plan(int p, int m) {
   return pl;
 }
 
+// Where one lane's slices start: elements from the base of each buffer.
+struct LaneStride {
+  long long pm;    // c_xy, AA
+  long long mm;    // ry, H
+  long long work;  // scratch (lcx_ns_chain_workspace floats)
+};
+
+// blockIdx.y: lane.
 __global__ void __launch_bounds__(kThreads)
 chain_rr_kernel(const float* __restrict__ cxy, const float* __restrict__ sqz,
-                float clip, long long pm, int m, float* __restrict__ rr) {
+                float clip, long long pm, int m, LaneStride ls,
+                float* __restrict__ rr) {
+  cxy += blockIdx.y * ls.pm;
+  sqz += blockIdx.y * m;
+  rr += blockIdx.y * ls.work;
   for (long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
        idx < pm; idx += (long long)gridDim.x * kThreads) {
     const float rho = clip_rho(cxy[idx], sqz[idx % m], clip);
@@ -159,10 +182,13 @@ chain_rr_kernel(const float* __restrict__ cxy, const float* __restrict__ sqz,
 // is multiplied.
 __global__ void __launch_bounds__(kThreads, 2)
 chain_qij_kernel(const float* __restrict__ rr, const float* __restrict__ ry,
-                 int p, int m, float* __restrict__ qij) {
+                 int p, int m, LaneStride ls, float* __restrict__ qij) {
   __shared__ __align__(16) float a_s[2][kK][kLd];   // rr slice, transposed
   __shared__ __align__(16) float b_s[2][kK][kLd];   // ry slice
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
+  rr += blockIdx.z * ls.work;
+  ry += blockIdx.z * ls.mm;
+  qij += blockIdx.z * ls.pm;
   const long long row0 = (long long)blockIdx.y * kTile;
   const int col0 = blockIdx.x * kTile;
   float acc[8][8];
@@ -218,12 +244,20 @@ chain_qij_kernel(const float* __restrict__ rr, const float* __restrict__ ry,
 __global__ void __launch_bounds__(kThreads)
 chain_rows_kernel(const float* __restrict__ cxy, const float* __restrict__ sqz,
                   const float* __restrict__ rr, float clip, int p, int m,
-                  float* __restrict__ aa, float* __restrict__ rra,
-                  float* __restrict__ logv_out, float* __restrict__ col_part) {
+                  LaneStride ls, float* __restrict__ aa,
+                  float* __restrict__ rra, float* __restrict__ logv_out,
+                  float* __restrict__ col_part) {
   __shared__ float alpha_s[kRows];
   __shared__ float coef_s[kRows];      // α·S_i + β
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const long long row0 = (long long)blockIdx.x * kRows;
+  cxy += blockIdx.y * ls.pm;
+  aa += blockIdx.y * ls.pm;
+  sqz += blockIdx.y * m;
+  rr += blockIdx.y * ls.work;
+  rra += blockIdx.y * ls.work;
+  logv_out += blockIdx.y * ls.work;
+  col_part += blockIdx.y * ls.work;
 
   // S_i and Q_i, one warp per row, lanes striding over the columns.
   for (int r = warp; r < kRows; r += kWarps) {
@@ -287,14 +321,18 @@ chain_rows_kernel(const float* __restrict__ cxy, const float* __restrict__ sqz,
 // per block, double-buffered like the qij pass.
 __global__ void __launch_bounds__(kThreads, 2)
 chain_hmat_kernel(const float* __restrict__ rra, const float* __restrict__ rr,
-                  int p, int m, int rows_per_split,
+                  int p, int m, int rows_per_split, int ks, LaneStride ls,
                   float* __restrict__ h_part) {
   __shared__ __align__(16) float a_s[2][kK][kLd];   // rr[i, a0 + a]·α_i
   __shared__ __align__(16) float b_s[2][kK][kLd];   // rr[i, b0 + b]
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const int a0 = blockIdx.y * kTile;
   const int b0 = blockIdx.x * kTile;
-  const long long i_begin = (long long)blockIdx.z * rows_per_split;
+  const int lane = blockIdx.z / ks, split = blockIdx.z - lane * ks;
+  rra += lane * ls.work;
+  rr += lane * ls.work;
+  h_part += lane * ls.work;
+  const long long i_begin = (long long)split * rows_per_split;
   long long i_end = i_begin + rows_per_split;
   if (i_end > p) i_end = p;
   float acc[8][8];
@@ -329,7 +367,7 @@ chain_hmat_kernel(const float* __restrict__ rra, const float* __restrict__ rr,
     tile_fma(a_s[cur], b_s[cur], ty, tx, acc);
     __syncthreads();
   }
-  float* out = h_part + (long long)blockIdx.z * m * m;
+  float* out = h_part + (long long)split * m * m;
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
     const int ra = a0 + tile_off(ty, i);
@@ -343,13 +381,19 @@ chain_hmat_kernel(const float* __restrict__ rra, const float* __restrict__ rr,
 }
 
 // Blocks 0 .. gridDim.x-2: one thread per output of H (m*m) and of κ, μ, MI
-// (3m). The last block: the tree sum of log v_i over p.
+// (3m). The last block: the tree sum of log v_i over p. blockIdx.y: lane.
 __global__ void __launch_bounds__(kThreads)
 chain_reduce_kernel(const float* __restrict__ h_part, int ks,
                     const float* __restrict__ col_part, int n_tiles,
                     const float* __restrict__ logv, int p, int m,
-                    float* __restrict__ hmat, float* __restrict__ red) {
+                    LaneStride ls, float* __restrict__ hmat,
+                    float* __restrict__ red) {
   const long long mm = (long long)m * m;
+  h_part += blockIdx.y * ls.work;
+  col_part += blockIdx.y * ls.work;
+  logv += blockIdx.y * ls.work;
+  hmat += blockIdx.y * ls.mm;
+  red += blockIdx.y * (3LL * m + 1);
   if (blockIdx.x == gridDim.x - 1) {
     __shared__ float buf[kThreads];
     float s = 0.f;
@@ -381,7 +425,7 @@ chain_reduce_kernel(const float* __restrict__ h_part, int ks,
 extern "C" {
 
 // Floats of scratch memory lcx_ns_chain needs for a (p, m) problem, or -1
-// for an empty shape.
+// for an empty shape. lcx_ns_chain_lanes needs `lanes` times this.
 long long lcx_ns_chain_workspace(int p, int m) {
   if (p < 1 || m < 1) return -1;
   const Plan pl = make_plan(p, m);
@@ -389,17 +433,32 @@ long long lcx_ns_chain_workspace(int p, int m) {
          + (long long)pl.ks * m * m;
 }
 
-// Runs the passes on `stream`. Outputs: aa (p, m), hmat (m, m) and
-// red (3m + 1) = [κ, μ, Σ MI, Σ log v_i]. `work` holds
-// lcx_ns_chain_workspace(p, m) floats. Returns a cudaError_t (0 = success).
-int lcx_ns_chain(const float* cxy, const float* ry, const float* sqz,
-                 float clip, int p, int m, float* aa, float* hmat, float* red,
-                 float* work, int device, void* stream) {
-  if (p < 1 || m < 1) return (int)cudaErrorInvalidValue;
+// The largest lane count one launch takes for a (p, m) problem (the H
+// pass folds lanes and p ranges into gridDim.z, at most 65535), or -1 for
+// an empty shape.
+int lcx_ns_chain_max_lanes(int p, int m) {
+  if (p < 1 || m < 1) return -1;
+  return 65535 / make_plan(p, m).ks;
+}
+
+// Runs the passes for `lanes` problems of shape (p, m) on `stream`, one
+// launch per pass. Lane l reads cxy + l·p·m, ry + l·m·m, sqz + l·m and
+// writes aa + l·p·m, hmat + l·m·m, red + l·(3m + 1) = [κ, μ, Σ MI,
+// Σ log v_i]; `work` holds lanes · lcx_ns_chain_workspace(p, m) floats.
+// Returns a cudaError_t (0 = success).
+int lcx_ns_chain_lanes(const float* cxy, const float* ry, const float* sqz,
+                       float clip, int lanes, int p, int m, float* aa,
+                       float* hmat, float* red, float* work, int device,
+                       void* stream) {
+  if (p < 1 || m < 1 || lanes < 1 || lanes > lcx_ns_chain_max_lanes(p, m))
+    return (int)cudaErrorInvalidValue;
   const Plan pl = make_plan(p, m);
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const LaneStride ls = {pl.pm, (long long)m * m,
+                         lcx_ns_chain_workspace(p, m)};
+  // one lane's scratch, at work + lane·ls.work
   float* rr = work;
   float* rra = rr + pl.pm;
   float* logv = rra + pl.pm;
@@ -408,26 +467,37 @@ int lcx_ns_chain(const float* cxy, const float* ry, const float* sqz,
 
   long long eblocks = ceil_div(pl.pm, kThreads);
   if (eblocks > kElemBlocks) eblocks = kElemBlocks;
-  chain_rr_kernel<<<(int)eblocks, kThreads, 0, s>>>(cxy, sqz, clip, pl.pm, m,
-                                                     rr);
+  chain_rr_kernel<<<dim3((int)eblocks, lanes), kThreads, 0, s>>>(
+      cxy, sqz, clip, pl.pm, m, ls, rr);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  chain_qij_kernel<<<dim3(pl.tiles_m, pl.tiles_p), kThreads, 0, s>>>(
-      rr, ry, p, m, aa);
+  chain_qij_kernel<<<dim3(pl.tiles_m, pl.tiles_p, lanes), kThreads, 0, s>>>(
+      rr, ry, p, m, ls, aa);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  chain_rows_kernel<<<pl.n_row_tiles, kThreads, 0, s>>>(
-      cxy, sqz, rr, clip, p, m, aa, rra, logv, col_part);
+  chain_rows_kernel<<<dim3(pl.n_row_tiles, lanes), kThreads, 0, s>>>(
+      cxy, sqz, rr, clip, p, m, ls, aa, rra, logv, col_part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
-  chain_hmat_kernel<<<dim3(pl.tiles_m, pl.tiles_m, pl.ks), kThreads, 0, s>>>(
-      rra, rr, p, m, pl.rows_per_split, h_part);
+  chain_hmat_kernel<<<dim3(pl.tiles_m, pl.tiles_m, pl.ks * lanes), kThreads,
+                      0, s>>>(rra, rr, p, m, pl.rows_per_split, pl.ks, ls,
+                              h_part);
   if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
 
   const long long rblocks = ceil_div((long long)m * m + 3LL * m, kThreads) + 1;
-  chain_reduce_kernel<<<(int)rblocks, kThreads, 0, s>>>(
-      h_part, pl.ks, col_part, pl.n_row_tiles, logv, p, m, hmat, red);
+  chain_reduce_kernel<<<dim3((int)rblocks, lanes), kThreads, 0, s>>>(
+      h_part, pl.ks, col_part, pl.n_row_tiles, logv, p, m, ls, hmat, red);
   return (int)cudaGetLastError();
+}
+
+// One problem: outputs aa (p, m), hmat (m, m) and red (3m + 1) = [κ, μ,
+// Σ MI, Σ log v_i]; `work` holds lcx_ns_chain_workspace(p, m) floats.
+// Returns a cudaError_t (0 = success).
+int lcx_ns_chain(const float* cxy, const float* ry, const float* sqz,
+                 float clip, int p, int m, float* aa, float* hmat, float* red,
+                 float* work, int device, void* stream) {
+  return lcx_ns_chain_lanes(cxy, ry, sqz, clip, 1, p, m, aa, hmat, red, work,
+                            device, stream);
 }
 
 const char* lcx_error_string(int code) {

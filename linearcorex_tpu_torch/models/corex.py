@@ -1,14 +1,20 @@
 """The `Corex` estimator of the PyTorch port: single-device fit and
 inference.
 
-Port of the single-device fit of `linearcorex_tpu/models/corex.py`: the
-constructor surface (stored verbatim, validated at first use), the 'auto'
-resolution of the optimizer and of the chain kernel, the operand modes
-(`matmul_dtype` 'float32', 'bfloat16', 'int8' with its wrap guard), the
-seeded random and spectral inits, presets, the annealed fit on the
+Port of the single-device surface of `linearcorex_tpu/models/corex.py`:
+the constructor surface (stored verbatim, validated at first use), the
+'auto' resolution of the optimizer and of the chain kernel, the operand
+modes (`matmul_dtype` 'float32', 'bfloat16', 'int8' with its wrap guard),
+the seeded random and spectral inits, presets, the annealed fit on the
 non-overlap and overlap objectives, the two-program `stage_subsample`
-fit, `transform` (with `details=True`) and the fitted properties `tc`,
-`tcs`, `mis`, `clusters`, `history` and `n_iter_`.
+fit, the restart sweep (`n_restarts=k`: k lanes of one solve, the best
+final TC kept), `transform` (with `details=True`), `fit_transform`, the
+serving methods (`predict`/`inverse_transform`, `get_covariance`,
+`score`, `covariance_matvec`/`matmat`/`blocks`, all from the fitted
+factor structure, never a p x p solve), the sklearn estimator protocol
+and the fitted properties `tc`, `tcs`, `mis`, `clusters`, `history` and
+`n_iter_`. sklearn and pandas are imported only where a method needs
+them.
 
 Differences by design:
 - `device` (default "cuda") names where the fit runs. A CUDA device that
@@ -21,15 +27,18 @@ Differences by design:
   mode. The JAX package's m >= 128 gate was a TPU measurement and is not
   copied.
 
-Options of the JAX package that are not ported yet (restarts, a mesh,
-the faster `matmul_precision` values) raise NotImplementedError at fit,
-each naming its ROADMAP.md queue item.
+Options of the JAX package that are not ported yet (a mesh, the faster
+`matmul_precision` values, `partial_fit`, AOT `warmup`) raise
+NotImplementedError, each naming its ROADMAP.md queue item.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import inspect
+import math
+import numbers
+import sys
 import warnings
 from typing import Optional
 
@@ -43,13 +52,36 @@ from linearcorex_tpu_torch.core.solver import (FitDiagnostics, fit_core,
 from linearcorex_tpu_torch.ops import moments as M
 from linearcorex_tpu_torch.ops import preprocessing as P
 from linearcorex_tpu_torch.ops.cuda_moments import chain_supported
+from linearcorex_tpu_torch.parallel import restarts as R
 
 __all__ = ["Corex", "NotFittedError", "resolve_config", "resolve_optimizer"]
 
 
 class NotFittedError(ValueError, AttributeError):
     """Inference was requested before `fit` (the same bases as
-    `sklearn.exceptions.NotFittedError`)."""
+    `sklearn.exceptions.NotFittedError`). When sklearn is already
+    imported, the raised exception is a subclass of both this class and
+    sklearn's; sklearn is never imported for it."""
+
+
+_dual_not_fitted_cls = None
+
+
+def _raise_not_fitted(msg):
+    global _dual_not_fitted_cls
+    cls = NotFittedError
+    if "sklearn" in sys.modules:
+        if _dual_not_fitted_cls is None:
+            from sklearn.exceptions import NotFittedError as _SkNFE
+
+            class _DualNotFitted(NotFittedError, _SkNFE):
+                pass
+
+            _DualNotFitted.__name__ = "NotFittedError"
+            _DualNotFitted.__qualname__ = "NotFittedError"
+            _dual_not_fitted_cls = _DualNotFitted
+        cls = _dual_not_fitted_cls
+    raise cls(msg)
 
 
 def _not_ported(what: str, item: str):
@@ -58,13 +90,16 @@ def _not_ported(what: str, item: str):
         f"Queue 1, {item}); the JAX package linearcorex_tpu supports it")
 
 
-def check_ported(cfg: CorexConfig, n_restarts=1, mesh=None) -> None:
+def _no_mesh(what: str, mesh, sharding_plan=None) -> None:
+    if mesh is not None or sharding_plan is not None:
+        _not_ported(f"{what}(mesh=..., sharding_plan=...)",
+                    "item 17 (sharding)")
+
+
+def check_ported(cfg: CorexConfig, mesh=None) -> None:
     """Raise NotImplementedError, by name, for an option of the JAX
     package that the port does not run yet."""
-    if mesh is not None:
-        _not_ported("fit(mesh=...)", "item 17 (sharding)")
-    if n_restarts != 1:
-        _not_ported("n_restarts > 1", "item 11 (restarts)")
+    _no_mesh("fit", mesh)
     if cfg.matmul_precision not in ("default", "highest"):
         _not_ported(f"matmul_precision={cfg.matmul_precision!r}",
                     "item 1 (config)")
@@ -166,7 +201,8 @@ def _make_obj_grad(data, cfg: CorexConfig, strategy: str):
 
 def _fit_program(data, w0, cfg: CorexConfig, strategy: str):
     """The complete fit: annealed solve → final moments → factor sort.
-    Returns (ws, Moments, FitDiagnostics)."""
+    Returns (ws, Moments, FitDiagnostics). W0 of shape (k, m, p) fits k
+    restart lanes and returns each with a leading lane axis."""
     with M.full_f32_matmul():
         ws, diag = fit_core(_make_obj_grad(data, cfg, strategy), w0, cfg)
         zero = torch.zeros((), dtype=w0.dtype, device=w0.device)
@@ -189,6 +225,31 @@ def _spectral_init(data, omega, strategy: str, matmul_dtype: str):
     with M.full_f32_matmul():
         q, _ = torch.linalg.qr(apply(omega).to(omega.dtype))
     return q.T.contiguous()
+
+
+def prepare_operand(xp, strategy: str, matmul_dtype: str):
+    """The solver operand from preprocessed rows: X or its Gram matrix,
+    cast to bf16 under matmul_dtype='bfloat16', or quantized with the
+    int32 wrap guard under 'int8' (after preprocessing, whose
+    standardized columns the per-tensor scale relies on)."""
+    data = M.compute_gram(xp) if strategy == "gram" else xp
+    if matmul_dtype == "bfloat16":
+        return data.to(torch.bfloat16)
+    if matmul_dtype == "int8":
+        return M.quantize_samples(data)
+    return data
+
+
+def check_restart_sweep_supported(cfg: CorexConfig, strategy: str) -> None:
+    """Reject configs a restart sweep cannot honor: the lanes run one
+    solve over the whole anneal schedule, so the two-program
+    stage_subsample fit has no sweep form."""
+    if stage_subsample_active(cfg, strategy):
+        raise ValueError(
+            "stage_subsample < 1 is not supported with n_restarts > "
+            "1: the restart sweep is one vmapped program over the "
+            "whole anneal schedule. Set stage_subsample=1, or run "
+            "the staged fits sequentially.")
 
 
 def stage_subsample_active(cfg: CorexConfig, strategy: str) -> bool:
@@ -289,7 +350,128 @@ def _ctor_defaults():
             if v.default is not inspect.Parameter.empty}
 
 
+# ---------------------------------------------------------------------------
+# Serving: reconstruction, the factor-model covariance and its likelihood,
+# from the fitted moments. Σ̂_std = diag(1 − Σ_j z_ji²) + ZᵀZ (unit diagonal)
+# with Z = rhoinvrho/(1 + S_i) on the non-overlap path and Z = L⁻¹·C_xyᵀ,
+# C_y = L·Lᵀ, on the overlap path; scaled back by the fitted std.
+# ---------------------------------------------------------------------------
+
+def _predict_ns(y, rhoinvrho, si, z2, theta):
+    rec_w = (rhoinvrho.T / (1.0 + si)[:, None] / torch.sqrt(z2)[None, :])
+    return P.invert(M._mm(y, rec_w.T), theta)
+
+
+def _predict_overlap(y, cy, c_xy, theta):
+    coef = torch.linalg.solve(cy, c_xy.T)
+    return P.invert(M._mm(y, coef), theta)
+
+
+def _unit_diag_scaled(cov, std):
+    nv = cov.shape[0]
+    cov = cov - torch.diag(torch.diagonal(cov)) + torch.eye(
+        nv, dtype=cov.dtype, device=cov.device)
+    return std[:, None] * std[None, :] * cov
+
+
+def _factor_z_ns(rhoinvrho, si):
+    """Z with Σ̂_std = diag(d) + ZᵀZ on the non-overlap path (shared by
+    the covariance, `score` and the held-out scorer of `pick_n_hidden`)."""
+    return rhoinvrho / (1.0 + si)[None, :]
+
+
+def _factor_z_overlap(cy, c_xy):
+    """Z for the overlap path: C_xy·C_y⁻¹·C_xyᵀ = ZᵀZ with Z = L⁻¹·C_xyᵀ,
+    C_y = L·Lᵀ (NaN where C_y is not positive definite, as in JAX)."""
+    return torch.linalg.solve_triangular(M._cholesky_or_nan(cy), c_xy.T,
+                                         upper=False)
+
+
+def _cov_ns(rhoinvrho, si, std):
+    z = _factor_z_ns(rhoinvrho, si)
+    return _unit_diag_scaled(M._mm(z.T, z), std)
+
+
+def _cov_overlap(cy, c_xy, std):
+    sol = torch.linalg.solve(cy, c_xy.T)
+    return _unit_diag_scaled(M._mm(c_xy, sol), std)
+
+
+def _matmat_ns(rhoinvrho, si, std, v):
+    """Σ̂·V for V (p, k) on the non-overlap path; p x p never forms."""
+    z = _factor_z_ns(rhoinvrho, si)
+    sv = std[:, None] * v
+    low = M._mm(z.T, M._mm(z, sv))
+    diag = torch.sum(z * z, dim=0)
+    return std[:, None] * (low + (1.0 - diag)[:, None] * sv)
+
+
+def _matmat_overlap(cy, c_xy, std, v):
+    """Σ̂·V for V (p, k) on the overlap path; p x p never forms."""
+    sol = torch.linalg.solve(cy, c_xy.T)                   # m x p
+    sv = std[:, None] * v
+    low = M._mm(c_xy, M._mm(sol, sv))
+    diag = torch.sum(c_xy * sol.T, dim=1)
+    return std[:, None] * (low + (1.0 - diag)[:, None] * sv)
+
+
+def _gaussian_ll(xp, z, std):
+    """Mean Gaussian log-likelihood of preprocessed rows under Σ̂_std =
+    diag(d) + ZᵀZ (d = 1 − Σ_j z_ji², the unit-diagonal completion),
+    through Woodbury and the matrix determinant lemma: O(n·p·m + m³), the
+    p x p never materializes. The `− Σ log std` term maps the density back
+    through the affine standardization to the data's own scale."""
+    p = xp.shape[1]
+    mdim = z.shape[0]
+    d = torch.clamp(1.0 - torch.sum(z * z, dim=0), min=1e-6)
+    zd = z / d[None, :]
+    a = torch.eye(mdim, dtype=z.dtype, device=z.device) + M._mm(zd, z.T)
+    chol = M._cholesky_or_nan(a)
+    logdet = torch.sum(torch.log(d)) + 2.0 * torch.sum(
+        torch.log(torch.diagonal(chol)))
+    t = xp / d[None, :]
+    q1 = torch.sum(xp * t, dim=1)
+    u = M._mm(t, z.T)                                        # n x m
+    sol = torch.cholesky_solve(u.T, chol, upper=False)       # m x n
+    q2 = torch.sum(u.T * sol, dim=0)
+    log2pi = torch.log(torch.tensor(2.0 * math.pi, dtype=xp.dtype,
+                                    device=xp.device))
+    ll = -0.5 * (q1 - q2 + logdet + p * log2pi)
+    return torch.mean(ll) - torch.sum(torch.log(std))
+
+
+def _cov_rows(z, std, start: int, block: int):
+    """Dense rows [start, start + block) of Σ̂ from Z, scaled back by
+    std."""
+    rows = M._mm(z[:, start:start + block].T, z)              # b x p
+    idx = torch.arange(block, device=z.device)
+    rows[idx, start + idx] = 1.0          # the unit-diagonal completion
+    return std[start:start + block, None] * std[None, :] * rows
+
+
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The compute dtype named by a `dtype=` argument."""
+    if name not in _DTYPES:
+        raise ValueError(f"dtype must be 'float32' or 'float64', got "
+                         f"{name!r}")
+    return _DTYPES[name]
+
+
+def resolve_device(device) -> torch.device:
+    """The device named by a `device=` argument: a CUDA device that is not
+    there raises (nothing moves to the CPU behind the caller's back)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={device!r} but CUDA is not available; pass "
+            f"device='cpu' to run the port on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"device must be a CUDA device or 'cpu', got "
+                         f"{device!r}")
+    return dev
 
 
 class Corex:
@@ -336,18 +518,44 @@ class Corex:
         self.n_restarts = n_restarts
         self.device = device
 
-    # fitted state; None until fit (or corex_from_numpy) sets it
-    ws: Optional[torch.Tensor] = None
-    theta: Optional[P.Theta] = None
-    moments: Optional[M.Moments] = None
-    diagnostics: Optional[FitDiagnostics] = None
-    nv: Optional[int] = None
-    n_samples: Optional[int] = None
+    # Fitted state lives in private class-level defaults: an instance
+    # carries no fitted attribute until fit (or corex_from_numpy) sets one
+    # (sklearn's check_no_attributes_set_in_init and
+    # check_dont_overwrite_parameters), and the public names are
+    # properties over that storage.
+    _ws: Optional[torch.Tensor] = None
+    _theta: Optional[P.Theta] = None
+    _moments: Optional[M.Moments] = None
+    _diagnostics: Optional[FitDiagnostics] = None
+    _nv: Optional[int] = None
+    _n_samples: Optional[int] = None
     resolved_optimizer_: Optional[str] = None
+    # the restart lane the last fit kept (0 for a single fit)
     best_restart_: Optional[int] = None
     # warm-start weights held apart from fitted state (a repeated fit is
     # fresh; corex_from_numpy re-arms this so a later fit warm-starts)
     _pretrained_ws: Optional[torch.Tensor] = None
+
+    ws = property(lambda self: self._ws,
+                  lambda self, v: setattr(self, "_ws", v),
+                  doc="Fitted (m, p) weight matrix (None before fit).")
+    theta = property(lambda self: self._theta,
+                     lambda self, v: setattr(self, "_theta", v),
+                     doc="Preprocessing parameters (None before fit).")
+    moments = property(lambda self: self._moments,
+                       lambda self, v: setattr(self, "_moments", v),
+                       doc="Fitted moments (None before fit).")
+    diagnostics = property(
+        lambda self: self._diagnostics,
+        lambda self, v: setattr(self, "_diagnostics", v),
+        doc="Per-stage FitDiagnostics (None before fit).")
+    nv = property(lambda self: self._nv,
+                  lambda self, v: setattr(self, "_nv", v),
+                  doc="Fitted n_variables (None before fit).")
+    n_samples = property(
+        lambda self: self._n_samples,
+        lambda self, v: setattr(self, "_n_samples", v),
+        doc="n_samples of the last fit (None before fit).")
 
     # ------------------------------------------------------------------
     @property
@@ -389,23 +597,11 @@ class Corex:
 
     @property
     def _dt(self) -> torch.dtype:
-        dt = self.config.dtype
-        if dt not in _DTYPES:
-            raise ValueError(f"dtype must be 'float32' or 'float64', got "
-                             f"{dt!r}")
-        return _DTYPES[dt]
+        return torch_dtype(self.config.dtype)
 
     @property
     def _device(self) -> torch.device:
-        dev = torch.device(self.device)
-        if dev.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device={self.device!r} but CUDA is not available; pass "
-                f"device='cpu' to run the port on the CPU")
-        if dev.type not in ("cuda", "cpu"):
-            raise ValueError(f"device must be a CUDA device or 'cpu', got "
-                             f"{self.device!r}")
-        return dev
+        return resolve_device(self.device)
 
     def _init_ws(self, p: int) -> torch.Tensor:
         """N(0, 1/sqrt(p)) init. Seeded: NumPy's RandomState, so a seed
@@ -420,41 +616,56 @@ class Corex:
         w = rng.normal(loc=0.0, scale=1.0 / np.sqrt(p), size=(self.m, p))
         return torch.as_tensor(w, dtype=self._dt, device=self._device)
 
-    def _to_tensor(self, x, what="x") -> torch.Tensor:
-        """Coerce input to a 2-D real tensor of the model dtype on the
-        model device."""
+    @staticmethod
+    def _coerce_2d(x, what="x"):
+        """Shared input coercion: reject sparse input by name, densify
+        array-likes (lists, DataFrames) with np.asarray, require 2-D and
+        real values. Tensors stay tensors."""
         if hasattr(x, "toarray") and hasattr(x, "tocsr"):
             raise TypeError(
                 f"sparse input is not supported: densify {what} first "
                 f"(e.g. X.toarray())")
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)
-            if np.iscomplexobj(x):
-                raise ValueError(
-                    f"Complex data not supported: {what} must be "
-                    f"real-valued")
-            if x.dtype == object:
-                # numeric object arrays densify; strings raise numpy's
-                # could-not-convert ValueError
-                x = x.astype(np.float64)
-            if self.pre_config.missing_values is None and x.ndim == 2 \
-                    and not np.isfinite(x).all():
-                raise ValueError(
-                    f"{what} contains NaN/inf; pass missing_values="
-                    f"<sentinel> after encoding missing entries, or clean "
-                    f"the data first")
-        elif x.is_complex():
-            raise ValueError(
-                f"Complex data not supported: {what} must be real-valued")
         if x.ndim != 2:
             raise ValueError(
                 f"expected a 2-D (n_samples, n_variables) array for "
-                f"{what}, got shape {tuple(x.shape)}")
+                f"{what}, got shape {tuple(x.shape)}. Reshape your data "
+                f"to 2-D (samples in rows).")
+        if (x.is_complex() if isinstance(x, torch.Tensor)
+                else np.iscomplexobj(x)):
+            raise ValueError(
+                f"Complex data not supported: {what} must be real-valued")
+        if isinstance(x, np.ndarray) and x.dtype == object:
+            # numeric object arrays densify; strings raise numpy's
+            # could-not-convert ValueError
+            x = x.astype(np.float64)
+        return x
+
+    def _to_tensor(self, x, what="x") -> torch.Tensor:
+        """Coerce input to a 2-D real tensor of the model dtype on the
+        model device."""
+        x = self._coerce_2d(x, what)
+        if isinstance(x, np.ndarray) and self.pre_config.missing_values \
+                is None and not np.isfinite(x).all():
+            raise ValueError(
+                f"{what} contains NaN/inf; pass missing_values="
+                f"<sentinel> after encoding missing entries, or clean "
+                f"the data first")
         if x.shape[1] == 0:
             raise ValueError(
                 f"0 feature(s) (shape={tuple(x.shape)}) while a minimum of "
                 f"1 is required.")
         return self._as_tensor(x)
+
+    def _check_width(self, x, what="x") -> torch.Tensor:
+        """`_to_tensor`, then the fitted width."""
+        x = self._to_tensor(x, what)
+        if x.shape[1] != self.nv:
+            raise ValueError(
+                f"{what} must be 2-D with {self.nv} columns (the fitted "
+                f"n_variables); got shape {tuple(x.shape)}")
+        return x
 
     def _as_tensor(self, a) -> torch.Tensor:
         """`a` (tensor or array-like) in the model dtype on the model
@@ -486,12 +697,7 @@ class Corex:
         pre = self.pre_config
         xp, self.theta = P.fit_preprocess(x, pre.gaussianize,
                                           pre.missing_values)
-        data = M.compute_gram(xp) if strategy == "gram" else xp
-        if cfg.matmul_dtype == "bfloat16":
-            data = data.to(torch.bfloat16)
-        elif cfg.matmul_dtype == "int8":
-            data = M.quantize_samples(data)
-        return data, cfg, strategy
+        return prepare_operand(xp, strategy, cfg.matmul_dtype), cfg, strategy
 
     def _resolve_w0(self, init_ws, data=None, strategy=None) -> torch.Tensor:
         """Initial weights: explicit init_ws > shape-matching pretrained
@@ -512,24 +718,96 @@ class Corex:
             if tuple(pre.shape) == (self.m, self.nv):
                 return pre
         if self.config.init == "spectral" and data is not None:
-            # Ω follows the random init's seeding: seeded → NumPy
-            # RandomState (the JAX package's Ω), unseeded → the device
+            return _spectral_init(data, self._omega(self.seed), strategy,
+                                  self.config.matmul_dtype)
+        return self._init_ws(self.nv)
+
+    def _omega(self, seed):
+        """The spectral init's random (p, m) block Ω. It follows the
+        random init's seeding: seeded → NumPy RandomState(seed) (the JAX
+        package's Ω), unseeded → the device generator, fresh entropy."""
+        if seed is None:
+            gen = torch.Generator(device=self._device)
+            gen.seed()
+            return torch.randn((self.nv, self.m), generator=gen,
+                               dtype=self._dt, device=self._device)
+        return self._as_tensor(np.random.RandomState(seed).normal(
+            size=(self.nv, self.m)))
+
+    def _validated_restarts(self, init_ws) -> int:
+        """Validate `n_restarts` at first use (stored verbatim by __init__
+        and set_params) and reject the combinations a restart sweep cannot
+        honor, by name."""
+        r = self.n_restarts
+        if not isinstance(r, numbers.Integral) or isinstance(r, bool) \
+                or r < 1:
+            raise ValueError(
+                f"n_restarts must be an integer >= 1, got {r!r}")
+        r = int(r)
+        if r == 1:
+            return 1
+        if init_ws is not None or self._pretrained_ws is not None \
+                or self.pretrained_weights is not None:
+            raise ValueError(
+                "n_restarts > 1 with an explicit warm start (init_ws / "
+                "pretrained_weights / load_corex) would run identical "
+                "lanes — every restart starts from the same W0. Drop the "
+                "warm start, or set n_restarts=1.")
+        return r
+
+    def _spectral_restart_inits(self, data, strategy, restarts):
+        """Per-lane spectral inits: lane r draws Ω from RandomState(seed +
+        r) (seeded) or from the device generator seeded with base + r
+        (unseeded), so lane 0 of a seeded sweep is the plain spectral fit's
+        W0 and preset='throughput' composes with restarts."""
+        base = R.seed_base(self.seed)
+        outs = []
+        for r in range(restarts):
             if self.seed is None:
-                gen = torch.Generator(device=self._device)
-                gen.seed()
+                gen = torch.Generator(device=self._device).manual_seed(
+                    base + r)
                 omega = torch.randn((self.nv, self.m), generator=gen,
                                     dtype=self._dt, device=self._device)
             else:
-                omega = self._as_tensor(np.random.RandomState(
-                    self.seed).normal(size=(self.nv, self.m)))
-            return _spectral_init(data, omega, strategy,
-                                  self.config.matmul_dtype)
-        return self._init_ws(self.nv)
+                omega = self._omega(base + r)
+            outs.append(_spectral_init(data, omega, strategy,
+                                       self.config.matmul_dtype))
+        return torch.stack(outs)
+
+    def _fit_restart_sweep(self, data, cfg, strategy, restarts):
+        """n_restarts > 1: the lanes run as one solve and the best final
+        TC wins (`best_restart_` records the lane). Lane r starts from
+        RandomState(seed + r), so lane 0 is the plain Corex(seed=seed) fit
+        and the sweep is reproducible; seed=None draws a fresh base per
+        call (`parallel.restarts.init_restarts`)."""
+        check_restart_sweep_supported(cfg, strategy)
+        run = R.restart_batch_runner(None)
+        with R.lane_oom_guidance(restarts, self.m, self.nv,
+                                 torch.empty((), dtype=self._dt)
+                                 .element_size()):
+            if cfg.init == "spectral":
+                w0 = self._spectral_restart_inits(data, strategy, restarts)
+            else:
+                w0 = R.init_restarts(restarts, self.m, self.nv, self.seed,
+                                     self._dt, self._device)
+            ws_b, mom_b, diag_b = run(data, w0, cfg, strategy,
+                                      self.n_samples)
+            self.ws, self.moments, self.diagnostics, best = \
+                R.best_restart(ws_b, mom_b, diag_b)
+        self.best_restart_ = best
+        if self.verbose:
+            self._print_verbose()
+        return self
 
     def fit(self, x, y=None, init_ws=None, mesh=None, sharding_plan=None):
         """Fit the model. `y` is ignored (unsupervised; accepted for
         sklearn Pipelines). `mesh`/`sharding_plan` belong to the JAX
-        package's sharded fit and raise NotImplementedError here."""
+        package's sharded fit and raise NotImplementedError here.
+
+        With `n_restarts=k > 1` the fit runs k seeded lanes as one solve
+        and keeps the best final TC (`_fit_restart_sweep`); init='spectral'
+        sweeps draw one Ω per lane. A warm start or stage_subsample < 1
+        with restarts raises by name."""
         ysh = getattr(y, "shape", None)
         xsh = getattr(x, "shape", None)
         if (ysh is not None and len(ysh) == 2 and init_ws is None
@@ -540,9 +818,13 @@ class Corex:
                 f"fit() received a 2-D y of shape {tuple(ysh)} == "
                 f"(n_hidden, n_variables) — pass initial weights as "
                 f"fit(x, init_ws=...); y is the ignored sklearn target")
-        del y, sharding_plan
-        check_ported(self.config, self.n_restarts, mesh)
+        del y
+        restarts = self._validated_restarts(init_ws)
+        _no_mesh("fit", mesh, sharding_plan)
+        check_ported(self.config)
         data, cfg, strategy = self._prepare_fit(x)
+        if restarts > 1:
+            return self._fit_restart_sweep(data, cfg, strategy, restarts)
         w0 = self._resolve_w0(init_ws, data=data, strategy=strategy)
         fit = _fit_staged_subsample if stage_subsample_active(
             cfg, strategy) else _fit_program
@@ -571,21 +853,27 @@ class Corex:
                   f"delta: {deltas[s]:.2e}")
 
     # ------------------------------------------------------------------
+    def fit_transform(self, x, y=None, mesh=None, sharding_plan=None):
+        """fit, then transform the same rows (sklearn Pipelines call it
+        with y positionally; it is ignored)."""
+        del y
+        self.fit(x, mesh=mesh, sharding_plan=sharding_plan)
+        return self.transform(x)
+
     def _check_fitted(self):
         if self.ws is None or self.moments is None:
-            raise NotFittedError(
+            _raise_not_fitted(
                 "this Corex instance is not fitted yet; call fit(X) first")
 
-    def transform(self, x, details=False):
+    def transform(self, x, details=False, mesh=None, sharding_plan=None):
         """Project to factors: Y = X_preproc·Wᵀ. With details=True returns
         (Y, moments dict) with the moments of the given data under the
-        fitted weights (the reference's keys)."""
+        fitted weights (the reference's keys). Under
+        set_output(transform='pandas') the plain return is a DataFrame."""
+        _no_mesh("transform", mesh, sharding_plan)
         self._check_fitted()
-        x = self._to_tensor(x)
-        if x.shape[1] != self.nv:
-            raise ValueError(
-                f"x must be 2-D with {self.nv} columns (the fitted "
-                f"n_variables); got shape {tuple(x.shape)}")
+        x_orig = x
+        x = self._check_width(x)
         pre = self.pre_config
         cfg = self.config
         with M.full_f32_matmul():
@@ -593,12 +881,140 @@ class Corex:
                               pre.missing_values)
             y = M._mm(xp, self.ws.T)
             if not details:
-                return y
+                return self._maybe_wrap_output(y, x_orig)
             zero = torch.zeros((), dtype=self.ws.dtype, device=x.device)
             c_xy = M.cxy_samples(xp, self.ws, zero)
             mom = M.moments_from_cxy(self.ws, c_xy, cfg.y_scale,
                                      cfg.rho_clip)
         return y, mom.asdict()
+
+    def predict(self, y, mesh=None, sharding_plan=None):
+        """Reconstruct variables from factors: the posterior-mean
+        reconstruction, then the preprocessing inverted. The argument is
+        the FACTOR matrix (n, m) from `transform` (the reference's
+        semantics); `inverse_transform` is the sklearn spelling."""
+        _no_mesh("predict", mesh, sharding_plan)
+        self._check_fitted()
+        y = self._coerce_2d(y, what="y")
+        # the FITTED factor count: set_params(n_hidden=...) after fit must
+        # not make the fitted factors un-predictable
+        m_fit = self.ws.shape[0]
+        if y.shape[1] != m_fit:
+            raise ValueError(
+                f"y must be 2-D with {m_fit} columns (the fitted "
+                f"n_hidden); got shape {tuple(y.shape)}")
+        if isinstance(y, np.ndarray) and not np.isfinite(y).all():
+            raise ValueError(
+                "factor input to predict contains NaN/inf")
+        y = self._as_tensor(y)
+        mom = self.moments
+        with M.full_f32_matmul():
+            if self.config.discourage_overlap:
+                return _predict_ns(y, mom.rhoinvrho, mom.si, mom.z2,
+                                   self.theta)
+            return _predict_overlap(y, mom.cy, mom.c_xy, self.theta)
+
+    def inverse_transform(self, y, mesh=None, sharding_plan=None):
+        """sklearn spelling of `predict`: factors (n, m) back to the
+        variable space (n, p)."""
+        return self.predict(y, mesh=mesh, sharding_plan=sharding_plan)
+
+    def get_covariance(self):
+        """Dense p x p factor-model covariance estimate. For large p prefer
+        `covariance_matvec`/`matmat`/`blocks`, which never materialize
+        it."""
+        self._check_fitted()
+        mom = self.moments
+        with M.full_f32_matmul():
+            if self.config.discourage_overlap:
+                return _cov_ns(mom.rhoinvrho, mom.si, self.theta.std)
+            return _cov_overlap(mom.cy, mom.c_xy, self.theta.std)
+
+    def score(self, x, y=None, mesh=None, sharding_plan=None):
+        """Mean Gaussian log-likelihood of `x` under the fitted factor
+        covariance (the sklearn scoring convention: higher is better; `y`
+        is ignored). Woodbury on the diagonal-plus-low-rank Σ̂: O(n·p·m),
+        the p x p never materializes. Only the affine gaussianize modes
+        ('none', 'standard') carry a density back to the data's scale."""
+        del y
+        _no_mesh("score", mesh, sharding_plan)
+        self._check_fitted()
+        pre = self.pre_config
+        if pre.gaussianize not in ("none", "standard"):
+            raise ValueError(
+                "score() requires gaussianize='none' or 'standard': the "
+                "'empirical'/'outliers' transforms are non-affine, so a "
+                "density on the original scale is not defined by Σ̂ alone")
+        x = self._check_width(x)
+        with M.full_f32_matmul():
+            xp = P.preprocess(x, pre.gaussianize, self.theta,
+                              pre.missing_values)
+            return _gaussian_ll(xp, self._factor_z(), self.theta.std)
+
+    def _covariance_apply(self, v):
+        mom = self.moments
+        v = self._as_tensor(v)
+        with M.full_f32_matmul():
+            if self.config.discourage_overlap:
+                return _matmat_ns(mom.rhoinvrho, mom.si, self.theta.std, v)
+            return _matmat_overlap(mom.cy, mom.c_xy, self.theta.std, v)
+
+    def covariance_matvec(self, v, mesh=None, sharding_plan=None):
+        """Σ̂·v through skinny products (the p x p never forms); equal to
+        `get_covariance() @ v` to rounding on both solver paths."""
+        _no_mesh("covariance_matvec", mesh, sharding_plan)
+        self._check_fitted()
+        if not hasattr(v, "ndim"):
+            v = np.asarray(v)
+        if v.ndim != 1 or v.shape[0] != self.nv:
+            raise ValueError(
+                f"v must be 1-D with {self.nv} entries (the fitted "
+                f"n_variables); got shape {tuple(v.shape)} — use "
+                f"covariance_matmat for (p, k) blocks")
+        return self._covariance_apply(v[:, None])[:, 0]
+
+    def covariance_matmat(self, v, mesh=None, sharding_plan=None):
+        """Σ̂·V for a (p, k) block of vectors in one pass of skinny
+        products."""
+        _no_mesh("covariance_matmat", mesh, sharding_plan)
+        self._check_fitted()
+        if not hasattr(v, "ndim"):
+            v = np.asarray(v)
+        if v.ndim != 2 or v.shape[0] != self.nv:
+            raise ValueError(
+                f"v must be 2-D with {self.nv} rows (the fitted "
+                f"n_variables); got shape {tuple(v.shape)}")
+        return self._covariance_apply(v)
+
+    def _factor_z(self):
+        """The covariance factorization Z (m x p) of either solver path:
+        Σ̂_std has off-diagonal ZᵀZ and unit diagonal."""
+        mom = self.moments
+        if self.config.discourage_overlap:
+            return _factor_z_ns(mom.rhoinvrho, mom.si)
+        return _factor_z_overlap(mom.cy, mom.c_xy)
+
+    def covariance_blocks(self, block_size: int = 4096, mesh=None,
+                          sharding_plan=None):
+        """Yield `(start, rows)` dense row blocks of `get_covariance()`,
+        in order over [0, p), without forming the p x p matrix; `rows` has
+        shape (min(block_size, p - start), p). Every block is computed at
+        one size (the last as the tail of a full block)."""
+        _no_mesh("covariance_blocks", mesh, sharding_plan)
+        self._check_fitted()
+        if block_size < 1:
+            raise ValueError(f"block_size must be >= 1, got {block_size}")
+        p = self.nv
+        b = min(block_size, p)
+        with M.full_f32_matmul():
+            z = self._factor_z()
+        start = 0
+        while start < p:
+            s = min(start, p - b)
+            with M.full_f32_matmul():
+                rows = _cov_rows(z, self.theta.std, s, b)
+            yield start, rows[start - s:]
+            start = s + b
 
     @property
     def n_iter_(self) -> int:
@@ -644,6 +1060,102 @@ class Corex:
                 out["TC"].extend(hist[s, :k].tolist())
                 out["eps"].extend([eps] * k)
         return out
+
+    # -- the sklearn estimator protocol ---------------------------------
+    def get_params(self, deep=True):
+        """Every constructor argument, verbatim (the attribute is the
+        parameter, so sklearn's `clone` checks hold)."""
+        return {k: getattr(self, k) for k in _ctor_defaults()}
+
+    def set_params(self, **params):
+        """Update hyperparameters in place; fitted state is kept and
+        values are validated at first use, as in __init__."""
+        names = _ctor_defaults()
+        for k in params:
+            if k not in names:
+                raise ValueError(f"invalid parameter {k!r} for Corex")
+        for k, v in params.items():
+            setattr(self, k, v)
+        return self
+
+    def __sklearn_tags__(self):
+        """sklearn >= 1.6 estimator tags: an unsupervised 2-D transformer;
+        allow_nan when the missing marker is NaN. sklearn is imported here
+        only, where sklearn itself asks."""
+        from sklearn.utils import (InputTags, Tags, TargetTags,
+                                   TransformerTags)
+        mv = self.missing_values
+        return Tags(
+            estimator_type="transformer",
+            target_tags=TargetTags(required=False),
+            transformer_tags=TransformerTags(preserves_dtype=[]),
+            input_tags=InputTags(two_d_array=True,
+                                 allow_nan=mv is not None and mv != mv),
+            non_deterministic=self.seed is None,
+        )
+
+    def __sklearn_is_fitted__(self):
+        return self.ws is not None and self.moments is not None
+
+    @property
+    def n_features_in_(self):
+        """The fitted input width (== `nv`), sklearn's name."""
+        if self.nv is None:
+            raise AttributeError(
+                "n_features_in_ is not available: this Corex instance is "
+                "not fitted yet")
+        return self.nv
+
+    def get_feature_names_out(self, input_features=None):
+        """Names of the transform outputs, one per FITTED factor:
+        `corex0`..`corex{m-1}`. `input_features`, when given, must have
+        the fitted width."""
+        self._check_fitted()
+        if input_features is not None \
+                and len(input_features) != self.nv:
+            raise ValueError(
+                f"input_features should have length equal to "
+                f"n_features_in_ ({self.nv}), got {len(input_features)}")
+        return np.asarray([f"corex{i}" for i in range(self.ws.shape[0])],
+                          dtype=object)
+
+    def set_output(self, *, transform=None):
+        """sklearn's set_output API: transform='pandas' makes `transform`
+        and `fit_transform` return a DataFrame with
+        `get_feature_names_out` columns (the index of a DataFrame input
+        kept); 'default' restores tensors; None changes nothing."""
+        if transform is None:
+            return self
+        if transform not in ("default", "pandas"):
+            raise ValueError(
+                f"set_output transform must be 'default' or 'pandas', "
+                f"got {transform!r}")
+        self._output_transform = None if transform == "default" \
+            else transform
+        return self
+
+    def _maybe_wrap_output(self, z, x_orig):
+        if getattr(self, "_output_transform", None) != "pandas":
+            return z
+        import pandas as pd
+        index = x_orig.index if hasattr(x_orig, "index") \
+            and hasattr(x_orig, "columns") else None
+        return pd.DataFrame(z.cpu().numpy(),
+                            columns=self.get_feature_names_out(),
+                            index=index)
+
+    # ------------------------------------------------------------------
+    def partial_fit(self, x, y=None, mesh=None, sharding_plan=None):
+        """Incremental fit over row batches: not ported yet."""
+        _not_ported("partial_fit", "item 15 (streaming)")
+
+    def warmup(self, *args, **kwargs):
+        """Ahead-of-time compilation of the JAX package's XLA programs:
+        the port runs eagerly and has nothing to compile ahead."""
+        raise NotImplementedError(
+            "warmup compiles the JAX package's XLA programs ahead of time; "
+            "the PyTorch port runs eagerly, with no compiled program to "
+            "warm (ROADMAP.md: utils/compile_cache.py is not ported)")
 
     def __repr__(self):
         fitted = "" if self.ws is None else (

@@ -23,6 +23,16 @@ Port of `linearcorex_tpu/ops/moments.py`:
 
 Annealing enters analytically: C_xy ← (1−eps²)·⟨x·y⟩ + eps²·Wᵀ. `eps` may
 be a Python float or a 0-dim tensor of the compute dtype.
+
+Restart lanes: every objective and moment function also takes `ws` of
+shape (k, m, p), k independent fits side by side (`parallel.restarts`),
+and returns its outputs with a leading lane axis. The data operand (X, Σ,
+its bf16 cast or its `QuantizedData`) is shared by the lanes and applied
+to all of them in one product, on their operands laid side by side
+(`_lanes`, `_lane_rows`): Σ is read once per evaluation, not k times.
+Per-column int8 quantization gives a lane's columns the scales of a
+single fit, so its int8 products are bitwise those of the single fit. A
+2-D `ws` runs exactly the single-fit operations.
 """
 
 from __future__ import annotations
@@ -324,21 +334,42 @@ def _anneal(c0, wt, eps):
     return (1.0 - eps ** 2) * c0 + (eps ** 2) * wt
 
 
+def _lanes(fn, v):
+    """Apply a column-wise linear map fn: (p, c) ↦ (q, c) to every lane of
+    v (k, p, m) in one call, on the lanes' columns side by side (p, k·m),
+    so the data operand inside `fn` is read once for all lanes. A 2-D v is
+    one fit and goes to `fn` as it is."""
+    if v.ndim == 2:
+        return fn(v)
+    k, p, m = v.shape
+    out = fn(v.transpose(0, 1).reshape(p, k * m))
+    return out.reshape(out.shape[0], k, m).transpose(0, 1)
+
+
+def _lane_rows(fn, a):
+    """Row-layout twin of `_lanes`: fn: (r, p) ↦ (r, q) on the lanes' rows
+    stacked, (k·m, p)."""
+    if a.ndim == 2:
+        return fn(a)
+    k, m, p = a.shape
+    return fn(a.reshape(k * m, p)).reshape(k, m, -1)
+
+
 def cxy_samples(x, ws, eps):
     """C_xy = Xᵀ(X·Wᵀ)/n, annealed; the p x p covariance is never
     formed. A QuantizedData operand is dequantized here (the one-time
     exact path: final moments)."""
     x = _dequantized(x)
     n = x.shape[0]
-    y = _mm(x, ws.T)                                              # n x m
-    c_xy = _mm(x.T, y) / n                                        # p x m
-    return _anneal(c_xy, ws.T, eps)
+    c_xy = _lanes(lambda v: _mm(x.T, _mm(x, v)) / n, ws.mT)      # p x m
+    return _anneal(c_xy, ws.mT, eps)
 
 
 def cxy_gram(gram, ws, eps):
     """C_xy = Σ·Wᵀ, annealed: one O(p²·m) GEMM against the precomputed
     Gram matrix. A QuantizedData operand is dequantized here."""
-    return _anneal(_mm(_dequantized(gram), ws.T), ws.T, eps)
+    gram = _dequantized(gram)
+    return _anneal(_lanes(lambda v: _mm(gram, v), ws.mT), ws.mT, eps)
 
 
 def compute_gram(x):
@@ -351,12 +382,12 @@ def compute_gram(x):
 def _cy_ry(ws, c_xy, y_scale):
     """cov(y) = W·C_xy + y_scale²·I, its diagonal z2, sqrt(z2) and the
     correlation ry."""
-    m = ws.shape[0]
+    m = ws.shape[-2]
     cy = _mm(ws, c_xy) + (y_scale ** 2) * torch.eye(
         m, dtype=ws.dtype, device=ws.device)
-    z2 = torch.diagonal(cy)
+    z2 = torch.diagonal(cy, dim1=-2, dim2=-1)
     sqz = torch.sqrt(z2)
-    ry = cy / torch.outer(sqz, sqz)
+    ry = cy / (sqz[..., :, None] * sqz[..., None, :])
     return cy, z2, sqz, ry
 
 
@@ -364,23 +395,24 @@ def moments_from_cxy(ws, c_xy, y_scale: float, rho_clip: float) -> Moments:
     """All second-moment quantities plus TC/MI given C_xy."""
     dt = ws.dtype
     cy, z2, sqz, ry = _cy_ry(ws, c_xy, y_scale)
-    rho = (c_xy / sqz[None, :]).T
+    rho = (c_xy / sqz[..., None, :]).mT
     rho = torch.clamp(rho, -rho_clip, rho_clip)
     invrho = 1.0 / (1.0 - rho ** 2)
     rhoinvrho = rho * invrho
     qij = _mm(ry, rhoinvrho)
-    si = torch.sum(rho * rhoinvrho, dim=0)
-    qi = torch.sum(rhoinvrho * qij, dim=0)
+    si = torch.sum(rho * rhoinvrho, dim=-2)
+    qi = torch.sum(rhoinvrho * qij, dim=-2)
     # <x_i^2|Y>: mean squared residual of the product-of-experts
     # reconstruction, (1 + Q_i − S_i²)/(1 + S_i)².
     vi = (1.0 + qi - si ** 2) / (1.0 + si) ** 2
     mi = -0.5 * torch.log1p(-rho ** 2)
     i_y_x = 0.5 * torch.log(z2) - torch.log(
         torch.tensor(y_scale, dtype=dt, device=ws.device))
-    tcs = torch.sum(mi, dim=1) - i_y_x
-    tc = torch.sum(tcs)
-    objective = 0.5 * torch.sum(torch.log(torch.clamp(vi, min=1e-30))) \
-        + 0.5 * torch.sum(torch.log(z2))
+    tcs = torch.sum(mi, dim=-1) - i_y_x
+    tc = torch.sum(tcs, dim=-1)
+    objective = 0.5 * torch.sum(torch.log(torch.clamp(vi, min=1e-30)),
+                                dim=-1) \
+        + 0.5 * torch.sum(torch.log(z2), dim=-1)
     return Moments(c_xy=c_xy, cy=cy, z2=z2, ry=ry, rho=rho, invrho=invrho,
                    rhoinvrho=rhoinvrho, qij=qij, si=si, qi=qi, vi=vi, mi=mi,
                    i_y_x=i_y_x, tcs=tcs, tc=tc, objective=objective)
@@ -388,22 +420,31 @@ def moments_from_cxy(ws, c_xy, y_scale: float, rho_clip: float) -> Moments:
 
 def permute_moments(mom: Moments, order) -> Moments:
     """Reindex the factor axis of every moment after the post-fit sort by
-    decreasing TCs (per-variable quantities are factor sums, unchanged)."""
+    decreasing TCs (per-variable quantities are factor sums, unchanged).
+    `order` is (m,), or (k, m) for lanes."""
+    def rows(a):
+        return torch.take_along_dim(a, order[..., :, None], dim=-2)
+
+    def cols(a):
+        return torch.take_along_dim(a, order[..., None, :], dim=-1)
+
+    def vec(a):
+        return torch.take_along_dim(a, order, dim=-1)
+
     return Moments(
-        c_xy=mom.c_xy[:, order], cy=mom.cy[order][:, order],
-        z2=mom.z2[order], ry=mom.ry[order][:, order], rho=mom.rho[order],
-        invrho=mom.invrho[order], rhoinvrho=mom.rhoinvrho[order],
-        qij=mom.qij[order], si=mom.si, qi=mom.qi, vi=mom.vi,
-        mi=mom.mi[order], i_y_x=mom.i_y_x[order], tcs=mom.tcs[order],
-        tc=mom.tc, objective=mom.objective,
+        c_xy=cols(mom.c_xy), cy=cols(rows(mom.cy)), z2=vec(mom.z2),
+        ry=cols(rows(mom.ry)), rho=rows(mom.rho), invrho=rows(mom.invrho),
+        rhoinvrho=rows(mom.rhoinvrho), qij=rows(mom.qij), si=mom.si,
+        qi=mom.qi, vi=mom.vi, mi=rows(mom.mi), i_y_x=vec(mom.i_y_x),
+        tcs=vec(mom.tcs), tc=mom.tc, objective=mom.objective,
     )
 
 
 def reconstruction_weights(mom: Moments):
     """R (p x m): E[x_i|y] = Σ_j R_ij y_j with
     R_ij = rhoinvrho_ji/((1+S_i)·sqrt(z2_j))."""
-    return (mom.rhoinvrho.T / (1.0 + mom.si)[:, None]
-            / torch.sqrt(mom.z2)[None, :])
+    return (mom.rhoinvrho.mT / (1.0 + mom.si)[..., :, None]
+            / torch.sqrt(mom.z2)[..., None, :])
 
 
 def _ns_gradient_terms(mom: Moments):
@@ -413,11 +454,11 @@ def _ns_gradient_terms(mom: Moments):
     alpha = 1.0 / (1.0 + mom.qi - mom.si ** 2)
     beta = 1.0 / (1.0 + mom.si)
     h_fac = (1.0 + rho ** 2) * invrho ** 2
-    aa = alpha[None, :] * h_fac * mom.qij \
-        - 2.0 * (alpha * mom.si + beta)[None, :] * rho * invrho ** 2
-    hmat = _mm(rr * alpha[None, :], rr.T)
-    kappa = torch.sum(aa * rho, dim=1)
-    mu = torch.sum(alpha[None, :] * rr * mom.qij, dim=1)
+    aa = alpha[..., None, :] * h_fac * mom.qij \
+        - 2.0 * (alpha * mom.si + beta)[..., None, :] * rho * invrho ** 2
+    hmat = _mm(rr * alpha[..., None, :], rr.mT)
+    kappa = torch.sum(aa * rho, dim=-1)
+    mu = torch.sum(alpha[..., None, :] * rr * mom.qij, dim=-1)
     coef = kappa + mu - 1.0
     return aa, hmat, coef, torch.sqrt(mom.z2)
 
@@ -426,22 +467,13 @@ def _cxy_eff(data, ws, eps, bf16, gram):
     """Annealed effective cross-moment C_xy = Σ_eff·Wᵀ from X (samples),
     Σ (gram), either one in bf16, or int8-quantized: the one definition
     every objective and fixed-point entry point shares."""
-    if isinstance(data, QuantizedData):
-        return _anneal(_apply_int8(data, ws.T, gram).to(ws.dtype), ws.T, eps)
-    if not bf16:
-        return cxy_gram(data, ws, eps) if gram else cxy_samples(data, ws,
-                                                                eps)
-    if gram:
-        c0 = _mm_bf16(data, ws.T, ws.dtype)
-    else:
-        y = _mm_bf16(data, ws.T, ws.dtype)
-        c0 = _mm_bf16(data.T, y, ws.dtype) / data.shape[0]
-    return _anneal(c0, ws.T, eps)
+    apply = _apply_sigma_t(data, bf16, gram, ws.dtype)
+    return _anneal(_lanes(apply, ws.mT), ws.mT, eps)
 
 
 def _apply_sigma_t(data, bf16, gram, dtype):
     """v (p, k) ↦ Σ_emp·v for the operand mode (un-annealed; callers
-    blend eps themselves)."""
+    blend eps themselves and lay lanes side by side with `_lanes`)."""
     if isinstance(data, QuantizedData):
         return lambda v: _apply_int8(data, v, gram).to(dtype)
     if gram:
@@ -465,10 +497,11 @@ def _run_chain(ws, c_xy, y_scale, rho_clip):
 
 def _chain_obj_tc(dt, z2, sum_log_vi, mi_sums, y_scale):
     """Objective F and TC from the chain kernel's reductions."""
-    objective = 0.5 * sum_log_vi.to(dt) + 0.5 * torch.sum(torch.log(z2))
+    objective = 0.5 * sum_log_vi.to(dt) \
+        + 0.5 * torch.sum(torch.log(z2), dim=-1)
     i_y_x = 0.5 * torch.log(z2) - torch.log(
         torch.tensor(y_scale, dtype=dt, device=z2.device))
-    tc = torch.sum(mi_sums.to(dt) - i_y_x)
+    tc = torch.sum(mi_sums.to(dt) - i_y_x, dim=-1)
     return objective, tc
 
 
@@ -480,13 +513,13 @@ def _ns_obj_grad_chain(ws, c_xy, apply_sigma_t, eps, y_scale, rho_clip):
         ws, c_xy, y_scale, rho_clip)
     aa_t = aa_t.to(dt)
     coef = (kappa + mu - 1.0).to(dt)
-    aas_t = _anneal(apply_sigma_t(aa_t), aa_t, eps)
+    aas_t = _anneal(_lanes(apply_sigma_t, aa_t), aa_t, eps)
     inv_sqz = (1.0 / sqz).to(dt)
-    rho_t = torch.clamp(c_xy * inv_sqz[None, :], -rho_clip, rho_clip)
+    rho_t = torch.clamp(c_xy * inv_sqz[..., None, :], -rho_clip, rho_clip)
     grad_t = (aas_t + _mm(rho_t, hmat.to(dt))
-              - rho_t * coef[None, :]) * inv_sqz[None, :]
+              - rho_t * coef[..., None, :]) * inv_sqz[..., None, :]
     objective, tc = _chain_obj_tc(dt, z2, sum_log_vi, mi_sums, y_scale)
-    return objective, grad_t.T, tc
+    return objective, grad_t.mT, tc
 
 
 def ns_obj_grad_samples(ws, x, eps, y_scale, rho_clip, bf16=False,
@@ -516,19 +549,27 @@ def _ns_obj_grad(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel,
             y_scale, rho_clip)
     mom = moments_from_cxy(ws, c_xy, y_scale, rho_clip)
     aa, hmat, coef, sqz = _ns_gradient_terms(mom)
-    if isinstance(data, QuantizedData):
-        aas = _apply_int8(data, aa.T, gram).T.to(ws.dtype)
-    elif gram:
-        aas = _mm_bf16(aa, data, ws.dtype) if bf16 else _mm(aa, data)
-    elif bf16:
-        aas = _mm_bf16(_mm_bf16(aa, data.T, ws.dtype), data,
-                       ws.dtype) / data.shape[0]
-    else:
-        aas = _mm(_mm(aa, data.T), data) / data.shape[0]
-    aas = _anneal(aas, aa, eps)
+    aas = _anneal(_lane_rows(_apply_sigma_rows(data, bf16, gram, ws.dtype),
+                             aa), aa, eps)
     grad = (aas + _mm(hmat, mom.rho)
-            - coef[:, None] * mom.rho) / sqz[:, None]
+            - coef[..., :, None] * mom.rho) / sqz[..., :, None]
     return mom.objective, grad, mom.tc
+
+
+def _apply_sigma_rows(data, bf16, gram, dtype):
+    """a (r, p) ↦ a·Σ_emp for the operand mode: the row-layout form of
+    `_apply_sigma_t` (the gradient path's AA·Σ)."""
+    if isinstance(data, QuantizedData):
+        return lambda a: _apply_int8(data, a.T, gram).T.to(dtype)
+    if gram:
+        if bf16:
+            return lambda a: _mm_bf16(a, data, dtype)
+        return lambda a: _mm(a, data)
+    n = data.shape[0]
+    if bf16:
+        return lambda a: _mm_bf16(_mm_bf16(a, data.T, dtype), data,
+                                  dtype) / n
+    return lambda a: _mm(_mm(a, data.T), data) / n
 
 
 # ---------------------------------------------------------------------------
@@ -553,20 +594,20 @@ def fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip, chain_kernel=False):
         dt, z2, sqz, (aa_t, hmat, kappa, mu, mi_sums, slv) = _run_chain(
             ws, c_xy, y_scale, rho_clip)
         coef = (kappa + mu - 1.0).to(dt)
-        a_mat = torch.diag(coef) - hmat.to(dt)
+        a_mat = torch.diag_embed(coef) - hmat.to(dt)
         objective, tc = _chain_obj_tc(dt, z2, slv, mi_sums, y_scale)
         return objective, tc, a_mat, aa_t.to(dt), sqz
     mom = moments_from_cxy(ws, c_xy, y_scale, rho_clip)
     aa, hmat, coef, sqz = _ns_gradient_terms(mom)
-    a_mat = torch.diag(coef) - hmat
-    return mom.objective, mom.tc, a_mat, aa.T, sqz
+    a_mat = torch.diag_embed(coef) - hmat
+    return mom.objective, mom.tc, a_mat, aa.mT, sqz
 
 
 def fp_target_from_parts(ws, a_mat_inv, aa_t, sqz):
     """The solver direction ws − Ŵ from `ns_fp_parts` pieces and the
     inverse of a_mat (applied as inverse + GEMM, as the JAX package
     does)."""
-    target = _mm(a_mat_inv, aa_t.T) * sqz[:, None]
+    target = _mm(a_mat_inv, aa_t.mT) * sqz[..., :, None]
     return ws - target
 
 
@@ -589,8 +630,10 @@ def ns_fp_gram(ws, gram, eps, y_scale, rho_clip, bf16=False,
 def _ns_fp(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram):
     obj, tc, a_mat, aa_t, sqz = ns_fp_parts(
         ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram)
-    return obj, fp_target_from_parts(ws, torch.linalg.inv(a_mat), aa_t,
-                                     sqz), tc
+    # inv_ex, as jnp.linalg.inv: a singular a_mat gives inf/NaN (a rejected
+    # step of that lane) instead of an exception, and no host sync
+    a_inv = torch.linalg.inv_ex(a_mat).inverse
+    return obj, fp_target_from_parts(ws, a_inv, aa_t, sqz), tc
 
 
 # ---------------------------------------------------------------------------
@@ -605,16 +648,17 @@ def _cholesky_or_nan(cy):
     JAX package. `cholesky_ex` reports the failure in `info` on the
     device, so this costs no host sync."""
     chol, info = torch.linalg.cholesky_ex(cy)
-    return torch.where(info == 0, chol, torch.nan)
+    return torch.where(info[..., None, None] == 0, chol, torch.nan)
 
 
 def _overlap_core(ws, b, cy_chol, y_scale):
     """F and the shared terms given B = Σ_eff·Wᵀ and chol(C_y)."""
-    m = ws.shape[0]
-    bm = torch.cholesky_solve(b.T, cy_chol, upper=False).T       # p x m
-    v = torch.clamp(1.0 - torch.sum(bm * b, dim=1), min=1e-12)
-    logdet = 2.0 * torch.sum(torch.log(torch.diagonal(cy_chol)))
-    f = 0.5 * torch.sum(torch.log(v)) + 0.5 * logdet \
+    m = ws.shape[-2]
+    bm = torch.cholesky_solve(b.mT, cy_chol, upper=False).mT     # p x m
+    v = torch.clamp(1.0 - torch.sum(bm * b, dim=-1), min=1e-12)
+    logdet = 2.0 * torch.sum(
+        torch.log(torch.diagonal(cy_chol, dim1=-2, dim2=-1)), dim=-1)
+    f = 0.5 * torch.sum(torch.log(v), dim=-1) + 0.5 * logdet \
         - m * torch.log(torch.tensor(y_scale, dtype=ws.dtype,
                                      device=ws.device))
     return f, bm, v
@@ -622,16 +666,17 @@ def _overlap_core(ws, b, cy_chol, y_scale):
 
 def _overlap_from_b(ws, b, eps, y_scale, apply_sigma):
     """The overlap objective and gradient from the annealed B;
-    `apply_sigma(g)` maps an (m, p) matrix to g·Σ_emp."""
-    mdim = ws.shape[0]
+    `apply_sigma(g)` maps an (m, p) matrix to g·Σ_emp (lanes: their rows
+    stacked, `_lane_rows`)."""
+    mdim = ws.shape[-2]
     cy = _mm(ws, b) + (y_scale ** 2) * torch.eye(mdim, dtype=ws.dtype,
                                                  device=ws.device)
     chol = _cholesky_or_nan(cy)
     f, bm, v = _overlap_core(ws, b, chol, y_scale)
-    g_lhs = (bm / v[:, None]).T                                  # m x p
-    gs = _anneal(apply_sigma(g_lhs), g_lhs, eps)
+    g_lhs = (bm / v[..., :, None]).mT                            # m x p
+    gs = _anneal(_lane_rows(apply_sigma, g_lhs), g_lhs, eps)
     k = _mm(g_lhs, b)
-    mbt = torch.cholesky_solve(b.T, chol, upper=False)           # m x p
+    mbt = torch.cholesky_solve(b.mT, chol, upper=False)          # m x p
     grad = -gs + _mm(k, mbt) + mbt
     return f, grad, -f
 
@@ -642,7 +687,8 @@ def overlap_obj_grad_samples(ws, x, eps, y_scale):
     ∇F = −(M Bᵀ V)·Σ_eff + (M Bᵀ V B M)·Bᵀ + M·Bᵀ with M = C_y⁻¹,
     V = diag(1/v) (derivation in the JAX package's oracle)."""
     n = x.shape[0]
-    b = _anneal(_mm(x.T, _mm(x, ws.T)) / n, ws.T, eps)
+    b = _anneal(_lanes(lambda v: _mm(x.T, _mm(x, v)) / n, ws.mT), ws.mT,
+                eps)
     return _overlap_from_b(ws, b, eps, y_scale,
                            lambda g: _mm(_mm(g, x.T), x) / n)
 
@@ -652,5 +698,5 @@ def overlap_obj_grad_gram(ws, gram, eps, y_scale):
     working dtype. (The JAX package's product rounds it to float32 in
     every dtype, so in float64 the two differ at ~1e-7; the port agrees
     with the float64 oracle instead.)"""
-    b = _anneal(_mm(gram, ws.T), ws.T, eps)
+    b = _anneal(_lanes(lambda v: _mm(gram, v), ws.mT), ws.mT, eps)
     return _overlap_from_b(ws, b, eps, y_scale, lambda g: _mm(g, gram))

@@ -17,6 +17,11 @@ import linearcorex_tpu.ops.pallas_moments as PM
 from linearcorex_tpu_torch.ops import cuda_moments as CM
 from tests.conftest import block_data
 
+# One intra-op thread: the suite runs its files in parallel worker
+# processes, and an OpenMP pool per process on every core slows the
+# small tensors here several times over.
+torch.set_num_threads(1)
+
 RHO_CLIP = 1 - 1e-6
 SHAPES = [(400, 100), (999, 7), (257, 130), (400, 128)]
 

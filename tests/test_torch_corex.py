@@ -27,6 +27,11 @@ from linearcorex_tpu_torch.config import CorexConfig
 from linearcorex_tpu_torch.models.corex import resolve_config
 from tests.conftest import block_data
 
+# One intra-op thread: the suite runs its files in parallel worker
+# processes, and an OpenMP pool per process on every core slows the
+# small tensors here several times over.
+torch.set_num_threads(1)
+
 TOL64 = 1e-8
 
 
@@ -194,7 +199,7 @@ def test_resolve_config_per_device():
 
 
 @pytest.mark.parametrize("kwargs,fit_kwargs", [
-    (dict(n_restarts=2), {}),
+    (dict(n_restarts=2), dict(mesh=object())),
     ({}, dict(mesh=object())),
     (dict(matmul_precision="high"), {}),
 ])

@@ -210,3 +210,94 @@ def test_operand_mode_fit_on_card(mode, strategy, chain):
     cpu = lct.Corex(device="cpu", **kw).fit(x, init_ws=w0)
     assert np.array_equal(gpu.clusters.cpu().numpy(), cpu.clusters.numpy())
     assert abs(gpu.tc - cpu.tc) <= 1e-2 * abs(cpu.tc)
+
+
+def _lane_inputs(k, p, m, dev, dead_rows=0):
+    """k lanes of chain inputs; the last `dead_rows` factors of every lane
+    have zero weights (a padded selection lane): zero C_xy columns and
+    the identity in their ry rows and columns."""
+    rng = np.random.RandomState(4)
+    x = rng.normal(size=(600, p))
+    x = (x - x.mean(0)) / x.std(0)
+    out = []
+    for _ in range(k):
+        w = rng.normal(scale=0.1, size=(m, p))
+        if dead_rows:
+            w[m - dead_rows:] = 0.0
+        cxy = (x.T @ (x @ w.T) / 600).astype(np.float32)
+        cy = w @ cxy + np.eye(m)
+        z2 = np.diag(cy)
+        ry = (cy / np.sqrt(np.outer(z2, z2))).astype(np.float32)
+        out.append((cxy, ry, np.sqrt(z2).astype(np.float32)))
+    return tuple(torch.from_numpy(np.stack(a)).to(dev) for a in zip(*out))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k,p,m,dead", [(4, 10000, 512, 0), (3, 999, 7, 0),
+                                        (32, 1024, 8, 5)])
+def test_lane_kernel_matches_twin_and_single_launches(k, p, m, dead):
+    """The lane entry against the batched twin (1e-5 of the largest
+    magnitude), every lane bitwise equal to a one-lane launch on its
+    inputs, a second launch bitwise equal to the first; zero W rows give
+    exactly zero AA rows and H entries."""
+    _need_cuda()
+    cxy, ry, sqz = _lane_inputs(k, p, m, "cuda", dead)
+    before = CM.ns_chain.lane_launches
+    got = CM.ns_chain(cxy, ry, sqz, RHO_CLIP)
+    again = CM.ns_chain(cxy, ry, sqz, RHO_CLIP)
+    torch.cuda.synchronize()
+    assert CM.ns_chain.lane_launches == before + 2
+    want = CM.ns_chain_reference(cxy, ry, sqz, RHO_CLIP)
+    for g, g2, w in zip(got, again, want):
+        assert g.shape == w.shape
+        denom = float(w.abs().max()) + 1e-12
+        assert float((g - w).abs().max()) / denom < 1e-5
+        assert torch.equal(g, g2)
+    for lane in range(k):
+        one = CM.ns_chain(cxy[lane], ry[lane], sqz[lane], RHO_CLIP)
+        for g, o in zip(got, one):
+            assert torch.equal(g[lane], o)
+    if dead:
+        aa, hmat = got[0], got[1]
+        assert bool((aa[:, :, m - dead:] == 0).all())
+        assert bool((hmat[:, m - dead:, :] == 0).all())
+        assert bool((hmat[:, :, m - dead:] == 0).all())
+
+
+@pytest.mark.cuda
+def test_lane_kernel_rejects_too_many_lanes():
+    _need_cuda()
+    cxy, ry, sqz = _lane_inputs(2, 64, 8, "cuda")
+    lib = CM._kernel()
+    most = lib.lcx_ns_chain_max_lanes(64, 8)
+    big = (cxy[:1].expand(most + 1, -1, -1).contiguous(),
+           ry[:1].expand(most + 1, -1, -1).contiguous(),
+           sqz[:1].expand(most + 1, -1).contiguous())
+    with pytest.raises(ValueError, match="lanes"):
+        CM.ns_chain(*big, RHO_CLIP)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap", [False, True])
+def test_small_sweep_on_card_agrees_with_cpu(overlap):
+    """A 3-lane float32 sweep on the card (n=2000, p=256, m=8) against the
+    port's float64 CPU sweep from the same seeds: the same clusters, TC
+    within 1e-3 relative, and a winning lane that is a best lane on the
+    CPU too (the non-overlap lanes reach one optimum, TC equal to 1e-9
+    in float64, so the argmax among them is float32 noise); the
+    non-overlap sweep runs the lane kernel."""
+    _need_cuda()
+    rng = np.random.RandomState(3)
+    x = np.repeat(rng.normal(size=(2000, 8)), 32, axis=1) * 0.9 \
+        + 0.436 * rng.normal(size=(2000, 256))
+    kw = dict(n_hidden=8, n_restarts=3, seed=0, max_iter=2000,
+              discourage_overlap=not overlap)
+    before = CM.ns_chain.lane_launches
+    gpu = lct.Corex(device="cuda", **kw).fit(x)
+    assert (CM.ns_chain.lane_launches > before) == (not overlap)
+    cpu = lct.Corex(dtype="float64", device="cpu", **kw).fit(x)
+    single = dict(kw, n_restarts=1, seed=kw["seed"] + gpu.best_restart_)
+    lane = lct.Corex(dtype="float64", device="cpu", **single).fit(x)
+    assert abs(lane.tc - cpu.tc) / abs(cpu.tc) < 1e-3
+    assert np.array_equal(gpu.clusters.cpu().numpy(), cpu.clusters.numpy())
+    assert abs(gpu.tc - cpu.tc) / abs(cpu.tc) < 1e-3

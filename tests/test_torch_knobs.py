@@ -26,6 +26,11 @@ from linearcorex_tpu_torch.models import corex as TC
 from linearcorex_tpu_torch.ops import moments as TM
 from tests.conftest import block_data
 
+# One intra-op thread: the suite runs its files in parallel worker
+# processes, and an OpenMP pool per process on every core slows the
+# small tensors here several times over.
+torch.set_num_threads(1)
+
 TOL64 = 1e-8
 
 

@@ -16,6 +16,11 @@ from linearcorex_tpu.ops import moments as JM
 from linearcorex_tpu_torch.ops import moments as TM
 from tests.conftest import block_data
 
+# One intra-op thread: the suite runs its files in parallel worker
+# processes, and an OpenMP pool per process on every core slows the
+# small tensors here several times over.
+torch.set_num_threads(1)
+
 Y_SCALE, RHO_CLIP = 1.0, 1 - 1e-6
 TOL64 = 1e-10
 

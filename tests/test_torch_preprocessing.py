@@ -9,6 +9,11 @@ import torch
 from linearcorex_tpu.ops import preprocessing as JP
 from linearcorex_tpu_torch.ops import preprocessing as TP
 
+# One intra-op thread: the suite runs its files in parallel worker
+# processes, and an OpenMP pool per process on every core slows the
+# small tensors here several times over.
+torch.set_num_threads(1)
+
 
 @pytest.mark.parametrize("mode", ["none", "standard", "outliers"])
 @pytest.mark.parametrize("missing", [None, -1.0, float("nan")])

@@ -9,18 +9,22 @@ phase prints one JSON line; any failed phase raises, so the script exits
 non-zero and does not print the final line.
 
 1. env       card name and power limit, torch/CUDA versions; TF32 off.
-2. build     compiles linearcorex_tpu_torch/csrc/ns_chain.cu for sm_90a.
+2. build     compiles linearcorex_tpu_torch/csrc/ns_chain.cu for sm_90a;
+             ptxas must report 0 spill bytes for every kernel, and the
+             library must hold HGMMA (wgmma) instructions (cuobjdump
+             -sass), so the products demonstrably run on the tensor cores.
 3. kernels   the chain kernel against its plain PyTorch twin at
-             (p, m) = (10000, 512), (400, 100), (999, 7), (257, 130):
+             (p, m) = (10000, 512), (400, 100), (999, 7), (257, 130),
+             (1, 8), (37, 256), (1024, 8), (300, 520), (2000, 1030):
              max|kernel - twin| / max|twin| < 1e-5 for every output, and
              a second launch bitwise equal to the first.
    kernels_lanes  the lane entry (every lane in one launch per pass)
              against the batched twin at (k, p, m) = (4, 10000, 512),
-             (3, 999, 7) and (32, 1024, 8), the last a padded selection
-             grid whose 5 zero W rows per lane must give exactly zero AA
-             rows and H entries: within 1e-5 for every output, every lane
-             bitwise equal to a one-lane launch on its inputs, a second
-             launch bitwise equal to the first.
+             (3, 999, 7), (32, 1024, 8) and (16, 1024, 8), the last two
+             padded selection grids whose 5 or 3 zero W rows per lane must
+             give exactly zero AA rows and H entries: within 1e-5 for every
+             output, every lane bitwise equal to a one-lane launch on its
+             inputs, a second launch bitwise equal to the first.
 4. operands  the int8 and bf16 products on the card at (p, m) = (10000,
              512) and (999, 7): quantize_gram, _quant_cols and every int8
              product bitwise equal to the same call on the CPU, the scaled
@@ -74,10 +78,16 @@ non-zero and does not print the final line.
              anneal=False, tol=0, 200 iterations): float32 with the kernel
              and with the plain chain, bf16 and int8 with the kernel; CUDA
              events, an untimed warm-up, min of 3, the versions in turns.
-             The kernel alone against its twin, the same way. The lane
-             kernel at (4, 10000, 512) against four one-lane launches and
-             against the batched twin; fit_core on 4 lanes (float32 and
-             int8, 100 iterations) against the one-lane fit_core.
+             The kernel alone against its twin, the same way, beside its
+             bound (3xTF32 on the tensor cores, and on the CUDA cores) and
+             the time torch.matmul takes for its two products alone in
+             full float32 (products_library_ms: timed only, never called
+             by the port). The lane kernel at (4, 10000, 512) against four
+             one-lane launches and against the batched twin, with the same
+             bounds and yardstick; fit_core on 4 lanes (float32 and int8,
+             100 iterations) against the one-lane fit_core. The kernel
+             against its twin at small m (8, 64, 128; p = 1024 and 10000),
+             where a use_pallas='auto' gate would cross over.
 8. profile   torch.profiler over 20 such iterations per operand mode and
              for 4 float32 lanes: wall, device-busy and idle time per
              iteration and the kernels that take the most device time.
@@ -115,6 +125,92 @@ SMALL_TOL_REL = 1e-3    # card f32 fit vs the port's float64 CPU fit
 # CUDA-core float32 GEMM 4e-7-4.4e-6); a bf16-rounded output is 1.8e-3-
 # 2.9e-3 off. The bound sits between the two.
 BF16_TOL = 1e-4
+
+
+def chain_bounds_ms(lanes, p, m):
+    """The least time an H100 could take for `lanes` chains of (p, m), in
+    ms, from the H100 SXM's published peaks: the bytes the
+    chain must move (C_xy and ry read, AA, H and the 3m + 1 sums written,
+    sqz read; 4 bytes each) over 3.35 TB/s, against its two m-deep products
+    — qij = rr·ry (2·p·m² flops) and the symmetric H = (rr·α)ᵀ·rr (its
+    m(m+1)/2 distinct entries, p·m·(m+1) flops) — as 3xTF32 (three TF32
+    products each) over 495 TFLOP/s, or in float32 on the CUDA cores over
+    67 TFLOP/s. Returns (3xTF32 bound, CUDA-core bound); both are bound by
+    operations at the north-star shape."""
+    moved = lanes * 4 * (2 * p * m + 2 * m * m + 4 * m + 1) / 3.35e12
+    flops = lanes * (2 * p * m * m + p * m * (m + 1))
+    return (max(moved, 3 * flops / 495e12) * 1e3,
+            max(moved, flops / 67e12) * 1e3)
+
+
+def chain_products_ms(cxy, ry, sqz, rho_clip):
+    """torch.matmul of the chain's two products, rr·ry and (rr·α)ᵀ·rr, in
+    full float32 (TF32 off) on the kernel's inputs: the library yardstick
+    for the work that bounds the kernel. Timed only; the port never calls
+    it."""
+    import torch
+    from linearcorex_tpu_torch.ops import moments as Mo
+    rho = torch.clamp(cxy / sqz[..., None, :], -rho_clip, rho_clip)
+    rr = rho / (1.0 - rho ** 2)
+    qij = rr @ ry
+    si = torch.sum(rho * rr, dim=-1, keepdim=True)
+    qi = torch.sum(rr * qij, dim=-1, keepdim=True)
+    rra = rr / (1.0 + qi - si ** 2)
+    del rho, qij
+    with Mo.full_f32_matmul():
+        return time_ms(lambda: (rr @ ry, rra.mT @ rr), inner=20)
+
+
+def chain_pass_ms(args, launches=10):
+    """Device ms per launch of each pass of the chain kernel on `args`
+    (torch.profiler over `launches` launches after a warm-up), by kernel
+    name: split, qij product, row pass, H product, reduce."""
+    import re
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+    names = {"chain_split_kernel": "split", "chain_gemm_kernel<true>": "qij",
+             "chain_rows_kernel": "rows", "chain_gemm_kernel<false>": "hmat",
+             "chain_reduce_kernel": "reduce"}
+    ns_chain(*args, 1 - 1e-6)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(launches):
+            ns_chain(*args, 1 - 1e-6)
+        torch.cuda.synchronize()
+    out = {}
+    for e in prof.key_averages():
+        found = re.search(r"chain_\w+(<\w+>)?", e.key)
+        if found and found.group(0) in names \
+                and getattr(e, "device_time_total", 0) > 0:
+            out[names[found.group(0)]] = e.device_time_total / 1e3 / launches
+    check(len(out) == len(names), f"the profile shows the passes {out}")
+    return out
+
+
+def build_checks(rec):
+    """Phase build's gates: 0 spill bytes in every ptxas report, and the
+    HGMMA instructions in the built library (cuobjdump from nvcc's
+    toolkit). Returns (ptxas lines, HGMMA count)."""
+    import re
+    from pathlib import Path
+
+    from linearcorex_tpu_torch.utils import build
+    ptxas = [ln.strip() for ln in rec["log"].splitlines()
+             if "registers" in ln or "spill" in ln]
+    spills = [tuple(map(int, m)) for m in re.findall(
+        r"(\d+) bytes spill stores, (\d+) bytes spill loads", rec["log"])]
+    check(spills and all(st == ld == 0 for st, ld in spills),
+          f"ptxas reports spills (or no report): {spills}")
+    cuobjdump = Path(build.find_nvcc()).parent / "cuobjdump"
+    sass = subprocess.run([str(cuobjdump), "-sass", rec["path"]],
+                          capture_output=True, text=True, check=True,
+                          timeout=300).stdout
+    hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
+    check(hgmma > 0, "the built library holds no HGMMA instruction: the "
+          "chain's products do not run on the tensor cores")
+    return ptxas, hgmma
 
 
 def emit(phase, **fields):
@@ -628,12 +724,13 @@ def main():
     # 2. build
     rec = build.build("ns_chain", force=True)
     build.load("ns_chain")
+    ptxas, hgmma = build_checks(rec)
     emit("build", seconds=rec["seconds"], library=rec["path"],
-         ptxas=[ln.strip() for ln in rec["log"].splitlines()
-                if "registers" in ln or "spill" in ln])
+         spill_bytes=0, hgmma_instructions=hgmma, ptxas=ptxas)
 
     # 3. kernels
-    shapes = [(10_000, 512), (400, 100), (999, 7), (257, 130)]
+    shapes = [(10_000, 512), (400, 100), (999, 7), (257, 130), (1, 8),
+              (37, 256), (1024, 8), (300, 520), (2000, 1030)]
     max_abs_err = 0.0
     names = ("aa", "hmat", "kappa", "mu", "mi_sums", "sum_log_vi")
     for p, m in shapes:
@@ -659,7 +756,7 @@ def main():
     # 3b. the lane entry
     lanes_err = 0.0
     for k, p, m, dead in ((LANES, P, M, 0), (3, 999, 7, 0),
-                          (32, SEL_P, 8, 5)):
+                          (32, SEL_P, 8, 5), (16, SEL_P, 8, 3)):
         lanes_in = [chain_inputs(p, m, seed=1 + lane, dead=dead)
                     for lane in range(k)]
         cxy, ry, sqz = (torch.stack(t) for t in zip(*lanes_in))
@@ -802,8 +899,12 @@ def main():
             plain_ms = min(plain_ms, time_ms(
                 lambda: ns_chain_reference(cxy, ry, sqz, 1 - 1e-6),
                 inner=20))
+    bound_ms, bound_cc_ms = chain_bounds_ms(1, P, M)
+    products_ms = chain_products_ms(cxy, ry, sqz, 1 - 1e-6)
     emit("timing_kernel", p=P, m=M, kernel_ms=kernel_ms, plain_ms=plain_ms,
-         card=card)
+         bound_ms=bound_ms, bound_cuda_core_ms=bound_cc_ms,
+         bound_by="operations", products_library_ms=products_ms,
+         passes_ms=chain_pass_ms((cxy, ry, sqz)), card=card)
 
     lanes_in = [chain_inputs(P, M, seed=1 + lane) for lane in range(LANES)]
     cxy4, ry4, sqz4 = (torch.stack(t) for t in zip(*lanes_in))
@@ -821,9 +922,31 @@ def main():
             twin_ms = min(twin_ms, time_ms(
                 lambda: ns_chain_reference(cxy4, ry4, sqz4, 1 - 1e-6),
                 inner=10))
+    lanes_bound_ms, lanes_bound_cc_ms = chain_bounds_ms(LANES, P, M)
+    lanes_products_ms = chain_products_ms(cxy4, ry4, sqz4, 1 - 1e-6)
     emit("timing_kernel_lanes", lanes=LANES, p=P, m=M, lanes_ms=lane_ms,
-         single_launches_ms=singles_ms, twin_ms=twin_ms, card=card)
+         single_launches_ms=singles_ms, twin_ms=twin_ms,
+         bound_ms=lanes_bound_ms, bound_cuda_core_ms=lanes_bound_cc_ms,
+         bound_by="operations", products_library_ms=lanes_products_ms,
+         passes_ms=chain_pass_ms((cxy4, ry4, sqz4)), card=card)
     del cxy4, ry4, sqz4
+
+    # the kernel against its twin at small m (a use_pallas='auto' gate)
+    small_m = []
+    for p, m in ((SEL_P, 8), (SEL_P, 64), (SEL_P, 128), (P, 8), (P, 64),
+                 (P, 128)):
+        args = chain_inputs(p, m)
+        k_ms = t_ms = float("inf")
+        for which in ("twin", "kernel", "kernel", "twin"):
+            if which == "kernel":
+                k_ms = min(k_ms, time_ms(
+                    lambda: ns_chain(*args, 1 - 1e-6), inner=20))
+            else:
+                t_ms = min(t_ms, time_ms(
+                    lambda: ns_chain_reference(*args, 1 - 1e-6), inner=20))
+        small_m.append(dict(p=p, m=m, kernel_ms=k_ms, plain_ms=t_ms,
+                            kernel_faster=k_ms < t_ms))
+    emit("timing_small_m", cases=small_m, card=card)
 
     from linearcorex_tpu_torch.parallel.restarts import init_restarts
     w0_lanes = init_restarts(LANES, M, P, 0, torch.float32, dev)
@@ -861,13 +984,17 @@ def main():
         "replaces": "linearcorex_tpu/ops/pallas_moments.py:114",
         "launches": sum(launches.values()),
         "launches_per_path": launches, "max_abs_err": max_abs_err,
-        "ms": kernel_ms, "plain_ms": plain_ms}, {
+        "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+        "bound_by": "operations", "bound_cuda_core_ms": bound_cc_ms,
+        "library_ms": None, "products_library_ms": products_ms}, {
         "name": "ns_chain_lanes", "route": "cuda",
         "source": "linearcorex_tpu_torch/csrc/ns_chain.cu",
         "replaces": "linearcorex_tpu/ops/pallas_moments.py:114",
         "launches": sum(lane_launches.values()),
         "launches_per_path": lane_launches, "max_abs_err": lanes_err,
-        "ms": lane_ms, "plain_ms": twin_ms,
+        "ms": lane_ms, "plain_ms": twin_ms, "bound_ms": lanes_bound_ms,
+        "bound_by": "operations", "bound_cuda_core_ms": lanes_bound_cc_ms,
+        "library_ms": None, "products_library_ms": lanes_products_ms,
         "single_launches_ms": singles_ms}]}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

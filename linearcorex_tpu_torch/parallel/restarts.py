@@ -48,11 +48,13 @@ def seed_base(seed: Optional[int]) -> int:
 
 
 def init_restarts(n_restarts: int, m: int, p: int, seed: Optional[int],
-                  dtype=torch.float32, device="cpu") -> torch.Tensor:
+                  dtype=torch.float32, device="cuda") -> torch.Tensor:
     """Stack of seeded N(0, 1/sqrt(p)) inits, (n_restarts, m, p): restart
     r uses NumPy RandomState(base + r), so restart 0 of a seeded sweep is
     the W0 of a plain `Corex(seed=seed)` fit (and of the JAX package's
-    sweep). seed=None draws a fresh base (`seed_base`)."""
+    sweep). seed=None draws a fresh base (`seed_base`). On the card by
+    default, as `Corex` and `pick_n_hidden` are; pass device="cpu" for
+    the CPU."""
     base = seed_base(seed)
     w0 = np.stack([
         np.random.RandomState(base + r).normal(

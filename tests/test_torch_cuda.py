@@ -63,8 +63,13 @@ def test_wrapper_rejects_other_devices():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("p,m", [(10000, 512), (400, 100), (999, 7),
-                                 (257, 130), (400, 128), (2000, 1030)])
+                                 (257, 130), (400, 128), (2000, 1030),
+                                 (1, 8), (37, 256), (1024, 8), (300, 520)])
 def test_kernel_matches_twin(p, m):
+    """Within 1e-5 of the twin and bitwise-repeatable, at the GEMM tiles'
+    edges too: p below one 64-row warpgroup tile (1, 37), m of one
+    8-column block (8), of whole 128-column tiles (256, 512) and ragged
+    past them (130, 520, 1030)."""
     _need_cuda()
     cxy, ry, sqz = _inputs(p, m, "cuda")
     before = CM.ns_chain.launches
@@ -234,7 +239,7 @@ def _lane_inputs(k, p, m, dev, dead_rows=0):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k,p,m,dead", [(4, 10000, 512, 0), (3, 999, 7, 0),
-                                        (32, 1024, 8, 5)])
+                                        (32, 1024, 8, 5), (16, 1024, 8, 3)])
 def test_lane_kernel_matches_twin_and_single_launches(k, p, m, dead):
     """The lane entry against the batched twin (1e-5 of the largest
     magnitude), every lane bitwise equal to a one-lane launch on its

@@ -69,7 +69,8 @@ def test_lanes_step_matched_with_jax_sweep(strategy, objective):
     kw.update(dict(discourage_overlap=False) if objective == "overlap"
               else dict(optimizer=objective))
     dj, dt = _operands(x, strategy)
-    w0 = TR.init_restarts(3, 4, 32, seed=17, dtype=torch.float64)
+    w0 = TR.init_restarts(3, 4, 32, seed=17, dtype=torch.float64,
+                          device="cpu")
     assert np.array_equal(
         w0.numpy(), np.asarray(jax_inits(3, 4, 32, 17, jnp.float64)))
     ws, mom, diag = TR.fit_restarts(dt, w0, CorexConfig(**kw), strategy)
@@ -145,6 +146,19 @@ def test_unseeded_sweep_differs_across_calls():
     a = lct.Corex(n_restarts=2, seed=None, device="cpu", **KW).fit(x)
     b = lct.Corex(n_restarts=2, seed=None, device="cpu", **KW).fit(x)
     assert not torch.equal(a.ws, b.ws)
+
+
+def test_init_restarts_defaults_to_the_card():
+    """Like Corex and pick_n_hidden, init_restarts targets the card unless
+    asked for the CPU: without a card it raises instead of returning a CPU
+    tensor."""
+    if torch.cuda.is_available():
+        assert TR.init_restarts(2, 4, 32, seed=0).device.type == "cuda"
+    else:
+        with pytest.raises((AssertionError, RuntimeError)):
+            TR.init_restarts(2, 4, 32, seed=0)
+    cpu = TR.init_restarts(2, 4, 32, seed=0, device="cpu")
+    assert cpu.device.type == "cpu" and tuple(cpu.shape) == (2, 4, 32)
 
 
 @pytest.mark.parametrize("bad", [0, -1, 1.0, 2.5, True, "bad", None])
@@ -228,7 +242,7 @@ def test_operand_mode_lanes_match_jax(mode):
         dj, dt = JM.quantize_samples(dj), TM.quantize_samples(dt)
     else:
         dt = dt.to(torch.bfloat16)
-    w0 = TR.init_restarts(3, 4, 64, seed=5)
+    w0 = TR.init_restarts(3, 4, 64, seed=5, device="cpu")
     ws, mom, _ = TR.fit_restarts(dt, w0, CorexConfig(**kw), "gram")
     wj, mj, _ = jax_sweep(dj, jnp.asarray(w0.numpy()), JaxConfig(**kw),
                           "gram")
@@ -295,7 +309,8 @@ def test_nan_lane_stays_in_its_lane():
     _, dt = _operands(x, "gram")
     cfg = CorexConfig(n_hidden=4, dtype="float64", optimizer="fixed_point",
                       record_history=False)
-    w0 = TR.init_restarts(2, 4, 32, seed=1, dtype=torch.float64)
+    w0 = TR.init_restarts(2, 4, 32, seed=1, dtype=torch.float64,
+                          device="cpu")
     bad = torch.full((1, 4, 32), float("nan"), dtype=torch.float64)
     ws3, mom3, d3 = TR.fit_restarts(dt, torch.cat([w0[:1], bad, w0[1:]]),
                                     cfg, "gram")

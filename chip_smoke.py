@@ -9,13 +9,23 @@ phase prints one JSON line; any failed phase raises, so the script exits
 non-zero and does not print the final line.
 
 1. env       card name and power limit, torch/CUDA versions; TF32 off.
-2. build     compiles linearcorex_tpu_torch/csrc/ns_chain.cu for sm_90a;
-             ptxas must report 0 spill bytes for every kernel, and the
-             library must hold HGMMA (wgmma) instructions (cuobjdump
-             -sass), so the products demonstrably run on the tensor cores.
+2. build     compiles linearcorex_tpu_torch/csrc/ns_chain.cu for sm_90a
+             (nvcc) and the host library from csrc/*.cpp (g++), both
+             started together; ptxas must report 0 spill bytes for every
+             kernel, and the library must hold HGMMA (wgmma) instructions
+             (cuobjdump -sass), so the products demonstrably run on the
+             tensor cores.
+   native    the host library is available; its ndtri against
+             torch.special.ndtri (float64) to 1e-12; a generated 2000 x 64
+             CSV read by CsvReader equal to the pure-Python reader.
+             Reported: the two routes of 'empirical' preprocessing for a
+             NumPy input at n = p = 10,000, ranked on the card or by the
+             host library; the card's must be the faster (it is the one
+             Corex takes on a CUDA device) and the two must agree.
 3. kernels   the chain kernel against its plain PyTorch twin at
-             (p, m) = (10000, 512), (400, 100), (999, 7), (257, 130),
-             (1, 8), (37, 256), (1024, 8), (300, 520), (2000, 1030):
+             (p, m) = (10000, 512), (512, 32) (a stack's layer 2),
+             (400, 100), (999, 7), (257, 130), (1, 8), (37, 256),
+             (1024, 8), (300, 520), (2000, 1030):
              max|kernel - twin| / max|twin| < 1e-5 for every output, and
              a second launch bitwise equal to the first.
    kernels_lanes  the lane entry (every lane in one launch per pass)
@@ -58,6 +68,39 @@ non-zero and does not print the final line.
              last covariance_blocks(4096) blocks equal to those rows of
              get_covariance(); score(x) finite and above the score of x
              with its columns shuffled.
+   streaming x in ten batches of 1000 rows into GramAccumulator(P) on the
+             card: correlation() within 1e-5 of compute_gram of the
+             standardized x; acc.fit(n_hidden=512, optimizer='auto',
+             seed=0) runs the kernel, resolves the fixed point, gives a
+             finite TC and transform; fit_from_covariance(
+             acc.correlation(), n) from the same seed gives the same TC
+             within 1e-6 relative where it is handed the same operand bit
+             for bit (reported otherwise: normalizing a correlation again
+             may move entries by an ulp, and a float32 fit at this shape
+             then changes basin); from the accumulated covariance, which
+             normalizes to the streamed operand bit for bit, it must give
+             the streamed fit's TC. The same with matmul_dtype='int8', the
+             wrap guard silent. Reported: TC and block share beside the
+             in-memory fit's, accumulation and fit walls, peak memory.
+   partial_fit  two calls of 5000 rows on one estimator: both solve
+             through the kernel, the second warm-starts (its iterations
+             reported against the first's), finite TC; a following fit
+             drops the accumulation.
+   checkpoint  fit_with_checkpoints of the float32 fit into a temporary
+             directory, uninterrupted, then interrupted after stage 3 and
+             resumed: the kernel runs in every stage, the resumed fit has
+             the uninterrupted one's iterations per stage and its TC
+             within 1e-6 relative; save_corex -> load_corex on the card
+             transforms bitwise alike, and within 1e-5 relative when
+             loaded with device="cpu".
+   stacked   StackedCorex([512, 32], optimizer='auto', seed=0).fit(x):
+             layer 1 through the kernel at full width, layer 2 on the
+             (10,000, 512) factors, which stay on the card; every layer's
+             TC finite and positive, transform (n, 32) and predict (n, p)
+             finite. Layer 2 is then fitted again on the same factors from
+             the same W0 with use_pallas='never': the kernel's fit must
+             reach the plain chain's TC within 1e-3 relative; iterations
+             per stage, walls and clusters of both are reported.
 6. small     small fits on the card (n=2000, p=256, m=8) against the
              port's float64 CPU fit from the same W0 — same clusters, TC
              within 1e-3 relative: the non-overlap fit through the kernel
@@ -67,7 +110,9 @@ non-zero and does not print the final line.
              through the lane kernel and overlap, against the float64
              CPU sweep from the same seeds: same clusters, TC within
              1e-3, and a winning lane that is a best lane on the CPU too
-             ('small_restarts').
+             ('small_restarts'); streamed, partial_fit in four batches,
+             checkpointed and two-layer stacked fits against the float64
+             CPU results from the same W0 ('small_streaming').
    selection pick_n_hidden on block data with n=2000, p=1024 and 4
              planted blocks of 256 (max_n_hidden=8, repeat=4,
              max_iter=2000), padded and sequential, criterion 'tc' and
@@ -91,6 +136,10 @@ non-zero and does not print the final line.
 8. profile   torch.profiler over 20 such iterations per operand mode and
              for 4 float32 lanes: wall, device-busy and idle time per
              iteration and the kernels that take the most device time.
+   profiling utils.profiling.iteration_rate over the float32 fit_core run
+             within 5% of this script's own CUDA-event figure for it; a
+             utils.profiling.trace of three iterations holds a kernel of
+             ns_chain.cu by name.
 
 Before the last line it prints the kernels' summary line and the card's
 `nvidia-smi` name and power limit; the last line is
@@ -98,8 +147,10 @@ Before the last line it prints the kernels' summary line and the card's
 """
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 TOL_REL = 1e-5          # kernel vs twin, relative to the largest magnitude
@@ -119,6 +170,10 @@ PROFILED_ITERS = 20
 LANES = 4               # restart lanes of the north-star sweep
 SEL_N, SEL_P, SEL_BLOCKS = 2000, 1024, 4
 SMALL_TOL_REL = 1e-3    # card f32 fit vs the port's float64 CPU fit
+STREAM_BATCH = 1000     # rows per batch of the streamed north-star fit
+PF_MAX_ITER = 300       # per stage, for the two partial_fit solves
+STACK = [M, 32]
+STACK_TOL_REL = 1e-3    # a stack's layer 2: kernel fit vs plain-chain fit
 # _mm_bf16 on the card vs the exact (float64) product of the bf16-rounded
 # operands, relative to its largest magnitude. The tensor cores' float32
 # accumulation itself is 1.2e-5-2.2e-5 off at K = 10,000 on an H100 (a
@@ -364,28 +419,11 @@ def north_star_fit(x, seed=0, **kw):
     counts the lane entry's launches for a restart sweep (n_restarts in
     kw), the one-lane entry's otherwise. Peak device memory of the fit is
     left in torch.cuda.max_memory_allocated()."""
-    import warnings
-
-    import torch
     import linearcorex_tpu_torch as lct
-    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
 
     model = lct.Corex(n_hidden=M, seed=seed, tol=FIT_TOL,
                       max_iter=FIT_MAX_ITER, device="cuda", **kw)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ns_chain.launches = ns_chain.lane_launches = 0
-    t0 = time.perf_counter()
-    with warnings.catch_warnings(record=True) as rec:
-        warnings.simplefilter("always")
-        model.fit(x)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    sweep = kw.get("n_restarts", 1) > 1
-    launches = ns_chain.lane_launches if sweep else ns_chain.launches
-    check(not sweep or ns_chain.launches == 0,
-          "a restart sweep launched the one-lane kernel")
-    return model, launches, seconds, [str(w.message) for w in rec]
+    return counted(lambda: model.fit(x), lanes=kw.get("n_restarts", 1) > 1)
 
 
 def restart_sweeps(x, card):
@@ -487,12 +525,15 @@ def serving(model, x, card):
          score=score, score_shuffled=shuffled, card=card)
 
 
-def check_north_star(name, model, launches, x, tc_f32):
-    """Gates shared by the north-star fits; returns the reported fields."""
+def check_north_star(name, model, launches, x, tc_f32,
+                     gram_by_construction=False):
+    """Gates shared by the north-star fits; returns the reported fields.
+    A moment-input fit is on the gram strategy by construction."""
     import numpy as np
     import torch
 
-    check(model.config.pick_strategy(N, P) == "gram",
+    check(gram_by_construction
+          or model.config.pick_strategy(N, P) == "gram",
           f"{name}: the fit did not take the gram strategy")
     check(model.resolved_optimizer_ == "fixed_point",
           f"{name}: optimizer resolved to {model.resolved_optimizer_}")
@@ -508,6 +549,518 @@ def check_north_star(name, model, launches, x, tc_f32):
                 iters_per_stage=model.diagnostics.iters_per_stage.tolist(),
                 kernel_launches=launches, blocks_whole=whole,
                 blocks_bar=BLOCKS_BAR, blocks_bar_met=whole >= BLOCKS_BAR)
+
+
+def counted(fn, lanes=False):
+    """Run fn() with the chain kernel's launch counts set to 0 just before
+    and read just after. Returns (result, launches, seconds, warnings
+    raised): the one-lane entry's launches, or the lane entry's with
+    `lanes`; the other entry must not have run. Peak device memory of the
+    run is left in torch.cuda.max_memory_allocated()."""
+    import warnings
+
+    import torch
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ns_chain.launches = ns_chain.lane_launches = 0
+    t0 = time.perf_counter()
+    with warnings.catch_warnings(record=True) as rec:
+        warnings.simplefilter("always")
+        out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ran, other = ns_chain.launches, ns_chain.lane_launches
+    if lanes:
+        ran, other = other, ran
+    check(other == 0, "a restart sweep launched the one-lane kernel"
+          if lanes else "a single-lane path launched the lane kernel")
+    return out, ran, seconds, [str(w.message) for w in rec]
+
+
+def native_phase(x, card):
+    """Phase native: the host library, its ndtri and CSV reader, and the
+    two routes of 'empirical' preprocessing for a NumPy input at the
+    north-star size."""
+    import numpy as np
+    import torch
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.ops import preprocessing as Pre
+    from linearcorex_tpu_torch.utils import native
+    from linearcorex_tpu_torch.utils import streaming as S
+
+    check(native.available(), "the host library did not build or load")
+    q = torch.linspace(1e-12, 1 - 1e-12, 100_001, dtype=torch.float64)
+    ndtri_err = float((torch.as_tensor(native.ndtri(q.numpy()))
+                       - torch.special.ndtri(q)).abs().max())
+    check(ndtri_err < 1e-12, f"native ndtri is off by {ndtri_err:.3e} from "
+          f"torch.special.ndtri (bound 1e-12)")
+
+    rows = np.random.RandomState(11).normal(size=(2000, 64))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "rows.csv")
+        np.savetxt(path, rows, delimiter=",", header="a header line")
+        t0 = time.perf_counter()
+        with native.CsvReader(path, block_rows=512, skip_header=1) as reader:
+            got = np.concatenate(list(reader))
+        native_s = time.perf_counter() - t0
+        real = native.available
+        native.available = lambda: False
+        try:
+            t0 = time.perf_counter()
+            want = np.concatenate(list(S.iter_text_blocks(
+                path, block_rows=512, skip_header=1)))
+            python_s = time.perf_counter() - t0
+        finally:
+            native.available = real
+    check(got.shape == (2000, 64) and np.array_equal(got, want),
+          "CsvReader and the pure-Python reader disagree")
+    check(np.array_equal(got, rows), "CsvReader does not give back the "
+          "rows that were written")
+
+    # 'empirical' for a NumPy input: ranked on the card (what Corex does on
+    # a CUDA device) against the host library's route plus the upload
+    x_host = x.cpu().numpy()
+
+    def on_card():
+        t = torch.as_tensor(x_host, dtype=torch.float32, device="cuda")
+        out = Pre.fit_preprocess(t, "empirical")
+        torch.cuda.synchronize()
+        return out
+
+    on_card()
+    card_s = float("inf")
+    for _ in range(2):
+        t0 = time.perf_counter()
+        xp_card, theta_card = on_card()
+        card_s = min(card_s, time.perf_counter() - t0)
+    host_model = lct.Corex(gaussianize="empirical", device="cpu")
+    t0 = time.perf_counter()
+    xp_host, theta_host = host_model._host_preprocess(x_host)
+    xp_host = xp_host.to("cuda")
+    torch.cuda.synchronize()
+    host_s = time.perf_counter() - t0
+    routes_err = float((xp_card - xp_host).abs().max())
+    theta_err = float((theta_card.std.cpu() - theta_host.std).abs().max())
+    check(routes_err < 1e-5 and theta_err < 1e-5,
+          f"the two 'empirical' routes disagree: rows {routes_err:.3e}, "
+          f"std {theta_err:.3e}")
+    check(card_s < host_s, f"ranking on the card ({card_s:.3f} s) is not "
+          f"faster than the host library ({host_s:.3f} s): Corex takes the "
+          f"slower route on a CUDA device")
+    check(lct.Corex(gaussianize="empirical",
+                    device="cuda")._host_preprocess(x_host[:10]) is None,
+          "a CUDA model took the host route")
+    emit("native", available=True, ndtri_max_err=ndtri_err,
+         csv_rows=2000, csv_cols=64, csv_native_seconds=native_s,
+         csv_python_seconds=python_s, empirical_n=N, empirical_p=P,
+         empirical_card_route_seconds=card_s,
+         empirical_host_route_seconds=host_s,
+         empirical_routes_max_abs_diff=routes_err, card=card)
+
+
+def streaming_phase(x, ref, card):
+    """Phase streaming, in float32 and with matmul_dtype='int8'. `ref`
+    holds the in-memory fit's figures. Returns {path: launches}."""
+    import numpy as np
+    import torch
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.ops import moments as Mo
+    from linearcorex_tpu_torch.utils.streaming import _normalize_sigma
+
+    lct.GramAccumulator(P).update(x[:STREAM_BATCH])     # untimed warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    acc = lct.GramAccumulator(P)
+    check(acc._g.is_cuda, "the accumulator is not on the card")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(0, N, STREAM_BATCH):
+        acc.update(x[i:i + STREAM_BATCH])
+    end.record()
+    torch.cuda.synchronize()
+    acc_ms = start.elapsed_time(end)
+    acc_peak = torch.cuda.max_memory_allocated()
+    check(acc.n_samples == N, f"accumulated {acc.n_samples} rows")
+    corr = acc.correlation()
+    xs = (x - x.mean(0)) / x.std(0, correction=0)
+    corr_err = float((corr - Mo.compute_gram(xs)).abs().max())
+    del xs
+    check(corr_err < 1e-5, f"the streamed correlation is off by "
+          f"{corr_err:.3e} from compute_gram of the standardized x (bound "
+          f"1e-5 of the largest magnitude, 1)")
+    same_operand = bool(torch.equal(_normalize_sigma(corr)[0], corr))
+    mean_shift = acc._s / float(N)
+    cov_acc = acc._g / float(N) - torch.outer(mean_shift, mean_shift)
+    check(torch.equal(_normalize_sigma(cov_acc)[0], corr),
+          "the accumulated covariance does not normalize to correlation()")
+
+    launches = {}
+    kw = dict(optimizer="auto", seed=0, tol=FIT_TOL, max_iter=FIT_MAX_ITER)
+    for name, extra in (("streaming", {}),
+                        ("streaming_int8", dict(matmul_dtype="int8"))):
+        model, launches[name], fit_s, msgs = counted(
+            lambda: acc.fit(n_hidden=M, **kw, **extra))
+        fit_peak = torch.cuda.max_memory_allocated()
+        fields = check_north_star(name, model, launches[name], x,
+                                  ref["tc"], gram_by_construction=True)
+        check(model.n_samples == N and model.device == "cuda",
+              f"{name}: n_samples={model.n_samples}, device={model.device}")
+        guard = [w for w in msgs if "overflow" in w]
+        check(not guard, f"{name}: the int8 wrap guard spoke: {guard}")
+        cov_name = name.replace("streaming", "from_covariance")
+        cov, launches[cov_name], cov_s, _ = counted(
+            lambda: lct.fit_from_covariance(corr, N, M, **kw, **extra))
+        check(launches[cov_name] > 0 and np.isfinite(cov.tc)
+              and cov.resolved_optimizer_ == "fixed_point",
+              f"{cov_name}: launches {launches[cov_name]}, TC {cov.tc}, "
+              f"optimizer {cov.resolved_optimizer_}")
+        tc_rel = abs(cov.tc - model.tc) / abs(model.tc)
+        check(not same_operand or tc_rel < 1e-6,
+              f"{cov_name}: TC {cov.tc} against the streamed fit's "
+              f"{model.tc} from the same operand and seed")
+        # the accumulated covariance normalizes to the streamed operand
+        # bit for bit, so the fit from it must be the streamed fit
+        exact, launches[cov_name + "_exact"], _, _ = counted(
+            lambda: lct.fit_from_covariance(cov_acc, N, M, **kw, **extra))
+        exact_rel = abs(exact.tc - model.tc) / abs(model.tc)
+        check(launches[cov_name + "_exact"] > 0 and exact_rel < 1e-6,
+              f"{cov_name}: from the accumulated covariance TC {exact.tc} "
+              f"against the streamed fit's {model.tc}")
+        emit(name, batches=N // STREAM_BATCH, batch_rows=STREAM_BATCH,
+             accumulate_ms=acc_ms,
+             accumulate_ms_per_batch=acc_ms / (N // STREAM_BATCH),
+             corr_max_abs_err=corr_err, fit_seconds=fit_s,
+             fit_seconds_in_memory=ref["seconds"],
+             tc_in_memory=ref["tc"], blocks_whole_in_memory=ref["blocks"],
+             peak_bytes_accumulate=acc_peak, peak_bytes_fit=fit_peak,
+             from_covariance_tc=cov.tc, from_covariance_tc_rel_diff=tc_rel,
+             from_covariance_same_operand_bitwise=same_operand,
+             from_covariance_bitwise=bool(torch.equal(cov.ws, model.ws)),
+             from_accumulated_covariance_tc_rel_diff=exact_rel,
+             from_accumulated_covariance_bitwise=bool(
+                 torch.equal(exact.ws, model.ws)),
+             from_covariance_seconds=cov_s,
+             from_covariance_launches=launches[cov_name],
+             warnings=msgs, card=card,
+             **{k: v for k, v in fields.items() if k != "tc_f32_same_w0"})
+        del model, cov, exact
+    return launches
+
+
+def partial_fit_phase(x, card):
+    """Phase partial_fit: two calls of half the rows each on one
+    estimator. Returns {path: launches}."""
+    import numpy as np
+    import linearcorex_tpu_torch as lct
+
+    half = N // 2
+    est = lct.Corex(n_hidden=M, optimizer="auto", seed=0, tol=FIT_TOL,
+                    max_iter=PF_MAX_ITER, device="cuda")
+    launches, calls = {}, []
+    for k, name in enumerate(("partial_fit_1", "partial_fit_2")):
+        _, launches[name], secs, _ = counted(
+            lambda: est.partial_fit(x[k * half:(k + 1) * half]))
+        check(launches[name] > 0, f"{name} never launched the chain kernel")
+        check(np.isfinite(est.tc), f"{name}: TC is not finite: {est.tc}")
+        check(est.n_samples == (k + 1) * half,
+              f"{name}: n_samples={est.n_samples}")
+        calls.append(dict(n_samples=est.n_samples, tc=est.tc,
+                          optimizer=est.resolved_optimizer_,
+                          n_iter=est.n_iter_, seconds=secs,
+                          iters_per_stage=est.diagnostics.iters_per_stage
+                          .tolist(), kernel_launches=launches[name]))
+    check(est._partial_acc is not None and est._partial_acc._g.is_cuda,
+          "partial_fit keeps no accumulation on the card")
+    est.set_params(max_iter=20)
+    est.fit(x)
+    check(est._partial_acc is None and est.n_samples == N,
+          "fit did not drop the partial_fit accumulation")
+    emit("partial_fit", calls=calls, max_iter=PF_MAX_ITER,
+         second_over_first_iters=calls[1]["n_iter"] / calls[0]["n_iter"],
+         blocks_whole=None, fit_resets_accumulation=True, card=card)
+    return launches
+
+
+def checkpoint_phase(x, ref, card):
+    """Phase checkpoint: fit_with_checkpoints uninterrupted, then
+    interrupted after stage 3 and resumed; save_corex -> load_corex.
+    Returns {path: launches}."""
+    import numpy as np
+    import torch
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+    from linearcorex_tpu_torch.utils.checkpoint import fit_with_checkpoints
+
+    class Interrupted(Exception):
+        pass
+
+    def fresh():
+        return lct.Corex(n_hidden=M, optimizer="auto", seed=0, tol=FIT_TOL,
+                         max_iter=FIT_MAX_ITER, device="cuda")
+
+    def run(ckdir, stop_after=None):
+        per_stage = []
+
+        def callback(stage, eps, ws, stats):
+            per_stage.append(ns_chain.launches - sum(per_stage))
+            check(ws.is_cuda, "a stage's weights left the card")
+            if stage == stop_after:
+                raise Interrupted
+
+        model = fresh()
+        try:
+            _, n, secs, _ = counted(lambda: fit_with_checkpoints(
+                model, x, ckdir, stage_callback=callback))
+        except Interrupted:
+            return None, per_stage, None
+        check(per_stage and all(k > 0 for k in per_stage),
+              f"a checkpointed stage ran without the kernel: {per_stage}")
+        return model, per_stage, secs
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        whole, stages, whole_s = run(os.path.join(tmp, "whole"))
+        launches["checkpoint"] = sum(stages)
+        fields = check_north_star("checkpoint", whole, sum(stages), x,
+                                  ref["tc"])
+        _, first, _ = run(os.path.join(tmp, "cut"), stop_after=3)
+        check(len(first) == 4 and all(k > 0 for k in first),
+              f"the interrupted run's stages: {first}")
+        resumed, rest, resumed_s = run(os.path.join(tmp, "cut"))
+        launches["checkpoint_resumed"] = sum(rest)
+        check(len(rest) == len(stages) - 4,
+              f"the resumed run ran {len(rest)} stages, not "
+              f"{len(stages) - 4}")
+        check(resumed.diagnostics.iters_per_stage.tolist()
+              == whole.diagnostics.iters_per_stage.tolist(),
+              "the resumed fit's iterations per stage differ from the "
+              "uninterrupted fit's")
+        tc_rel = abs(resumed.tc - whole.tc) / abs(whole.tc)
+        check(tc_rel < 1e-6, f"the resumed fit's TC {resumed.tc} against "
+              f"the uninterrupted {whole.tc}")
+        state_bytes = os.path.getsize(os.path.join(tmp, "whole",
+                                                   "stage_state.npz"))
+
+        path = os.path.join(tmp, "model.npz")
+        t0 = time.perf_counter()
+        lct.save_corex(whole, path)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        again = lct.load_corex(path)
+        load_s = time.perf_counter() - t0
+        check(again.ws.is_cuda, "load_corex did not place the model on the "
+              "card")
+        y = whole.transform(x)
+        check(torch.equal(again.transform(x), y),
+              "the loaded model's transform differs from the saved one's")
+        host = lct.load_corex(path, device="cpu")
+        y_host = host.transform(x[:2000].cpu())
+        host_rel = float((y_host - y[:2000].cpu()).abs().max()
+                         / y[:2000].abs().max())
+        check(not y_host.is_cuda and host_rel < 1e-5,
+              f"the model loaded on the CPU transforms {host_rel:.3e} "
+              f"off (bound 1e-5 relative)")
+        model_bytes = os.path.getsize(path)
+    emit("checkpoint", stages=len(stages), launches_per_stage=stages,
+         launches_per_stage_resumed=rest, fit_seconds=whole_s,
+         fit_seconds_plain=ref["seconds"],
+         overhead_seconds_per_stage=(whole_s - ref["seconds"]) / len(stages),
+         resumed_seconds=resumed_s, resumed_tc_rel_diff=tc_rel,
+         resumed_bitwise=bool(torch.equal(resumed.ws, whole.ws)),
+         plain_fit_tc_rel_diff=abs(whole.tc - ref["tc"]) / abs(ref["tc"]),
+         stage_state_bytes=state_bytes, model_bytes=model_bytes,
+         save_seconds=save_s, load_seconds=load_s,
+         loaded_transform_bitwise=True, loaded_on_cpu_rel_err=host_rel,
+         card=card,
+         **{k: v for k, v in fields.items() if k != "tc_f32_same_w0"})
+    return launches
+
+
+def stacked_phase(x, card):
+    """Phase stacked: a two-layer stack at the north-star width. Returns
+    {path: launches}."""
+    import numpy as np
+    import torch
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+
+    marks, handed = [], []
+    real = lct.Corex.fit
+
+    def recording(self, data, *args, **kwargs):
+        handed.append(isinstance(data, torch.Tensor) and data.is_cuda)
+        out = real(self, data, *args, **kwargs)
+        marks.append(ns_chain.launches)
+        return out
+
+    stack = lct.StackedCorex(STACK, optimizer="auto", seed=0, tol=FIT_TOL,
+                             max_iter=FIT_MAX_ITER, device="cuda")
+    lct.Corex.fit = recording
+    try:
+        _, total, secs, _ = counted(lambda: stack.fit(x))
+    finally:
+        lct.Corex.fit = real
+    peak = torch.cuda.max_memory_allocated()
+    per_layer = [marks[0]] + [b - a for a, b in zip(marks, marks[1:])]
+    check(len(per_layer) == len(STACK) and per_layer[0] > 0,
+          f"stacked: kernel launches per layer {per_layer}")
+    check(all(handed), "a layer was handed factors that are not on the card")
+    check(tuple(stack.layers[1].ws.shape) == (STACK[1], STACK[0]),
+          f"layer 2 weights {tuple(stack.layers[1].ws.shape)}")
+    layer_tc = [layer.tc for layer in stack.layers]
+    check(all(np.isfinite(t) and t > 0 for t in layer_tc),
+          f"stacked: a layer's TC is not finite and positive: {layer_tc}")
+    y = stack.transform(x)
+    check(tuple(y.shape) == (N, STACK[-1]) and bool(torch.isfinite(y).all()),
+          f"stacked: transform {tuple(y.shape)} is not finite")
+    xr = stack.predict(y)
+    check(tuple(xr.shape) == (N, P) and bool(torch.isfinite(xr).all()),
+          "stacked: predict is not finite")
+
+    # layer 2 again through the plain chain: same factors, same seed and so
+    # the same W0 (after the counts were read; it launches no kernel)
+    deep = stack.layers[1]
+    plain = lct.Corex(n_hidden=STACK[1], optimizer="auto", seed=0,
+                      tol=FIT_TOL, max_iter=FIT_MAX_ITER,
+                      gaussianize="standard", use_pallas="never",
+                      device="cuda")
+    factors = stack.layers[0].transform(x)
+    before = ns_chain.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    plain.fit(factors)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    check(ns_chain.launches == before,
+          "stacked: the plain-chain fit launched the kernel")
+    tc_rel = abs(deep.tc - plain.tc) / abs(plain.tc)
+    check(tc_rel < STACK_TOL_REL,
+          f"stacked: layer 2 through the kernel gives TC {deep.tc}, through "
+          f"the plain chain {plain.tc}: {tc_rel:.3e} apart (bound "
+          f"{STACK_TOL_REL:g})")
+    same = bool((deep.clusters == plain.clusters).all())
+    emit("stacked", n_hiddens=STACK, layer_tc=layer_tc, tc=stack.tc,
+         launches_per_layer=per_layer, fit_seconds=secs,
+         layer_optimizers=[la.resolved_optimizer_ for la in stack.layers],
+         layer_iters=[la.n_iter_ for la in stack.layers],
+         layer2_iters_per_stage=deep.diagnostics.iters_per_stage.tolist(),
+         layer2_delta_per_stage=deep.diagnostics.delta_per_stage.tolist(),
+         layer2_tc_per_stage=deep.diagnostics.tc_per_stage.tolist(),
+         layer2_plain=dict(
+             tc=plain.tc, tc_rel_diff=tc_rel, bound=STACK_TOL_REL,
+             iters_per_stage=plain.diagnostics.iters_per_stage.tolist(),
+             same_clusters=same, fit_seconds=plain_s),
+         blocks_whole=blocks_whole(stack.clusters[0].cpu().numpy()),
+         peak_bytes=peak, card=card)
+    return {"stacked": total}
+
+
+def small_streaming(card):
+    """Streamed, partial_fit, checkpointed and stacked fits on the card
+    (n=2000, p=256, m=8) against the port's float64 CPU results from the
+    same W0 (phase small_streaming). Returns {path: launches}."""
+    import numpy as np
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.utils.checkpoint import fit_with_checkpoints
+
+    rng = np.random.RandomState(3)
+    xs = np.repeat(rng.normal(size=(2000, 8)), 32, axis=1) * 0.9 \
+        + 0.436 * rng.normal(size=(2000, 256))
+    ws0 = rng.normal(scale=1 / 16, size=(8, 256))
+    # two coarse factors over the eight fine ones, for the stack's layer 2
+    coarse = rng.normal(size=(2000, 2))
+    fine = 0.8 * np.repeat(coarse, 4, axis=1) + 0.6 * rng.normal(
+        size=(2000, 8))
+    xh = np.repeat(fine, 32, axis=1) * 0.9 + 0.436 * rng.normal(
+        size=(2000, 256))
+    small = dict(n_hidden=8, seed=0, max_iter=2000)
+    devices = (dict(device="cuda"), dict(device="cpu", dtype="float64"))
+
+    def streamed(dev):
+        acc = lct.GramAccumulator(256, dtype=dev.get("dtype", "float32"),
+                                  device=dev["device"])
+        for i in range(0, 2000, 400):
+            acc.update(xs[i:i + 400])
+        return [acc.fit(pretrained_weights=ws0, **small)]
+
+    def partial(dev):
+        est = lct.Corex(pretrained_weights=ws0, **small, **dev)
+        for i in range(0, 2000, 500):
+            est.partial_fit(xs[i:i + 500])
+        return [est]
+
+    def checkpointed(dev):
+        with tempfile.TemporaryDirectory() as tmp:
+            return [fit_with_checkpoints(lct.Corex(**small, **dev), xs, tmp,
+                                         init_ws=ws0)]
+
+    def stacked(dev):
+        kw = {k: v for k, v in small.items() if k != "n_hidden"}
+        return lct.StackedCorex([8, 2], **kw, **dev).fit(xh).layers
+
+    launches = {}
+    for name, fn in (("streamed", streamed), ("partial_fit", partial),
+                     ("checkpointed", checkpointed), ("stacked", stacked)):
+        gpu, launches[f"small_{name}"], _, _ = counted(
+            lambda: fn(devices[0]))
+        cpu = fn(devices[1])
+        check(launches[f"small_{name}"] > 0,
+              f"small '{name}' never launched the chain kernel")
+        for layer, (g, c) in enumerate(zip(gpu, cpu)):
+            rel_tc = abs(g.tc - c.tc) / abs(c.tc)
+            same = bool(np.array_equal(g.clusters.cpu().numpy(),
+                                       c.clusters.numpy()))
+            emit("small_streaming", path=name, layer=layer, tc_card=g.tc,
+                 tc_cpu_f64=c.tc, tc_rel_diff=rel_tc, clusters_equal=same,
+                 n_iter_card=g.n_iter_, n_iter_cpu=c.n_iter_,
+                 kernel_launches=launches[f"small_{name}"], card=card)
+            check(same and rel_tc < SMALL_TOL_REL,
+                  f"small '{name}' fit (layer {layer}) on the card "
+                  f"disagrees with the float64 CPU fit")
+    return launches
+
+
+def profiling_phase(data, w0, card):
+    """Phase profiling: utils.profiling.iteration_rate against this
+    script's own timing of the same run, and a utils.profiling.trace that
+    must show the chain kernel by name."""
+    import re
+
+    from linearcorex_tpu_torch.utils import profiling
+
+    run, out = fit_core_runner(data, w0, "float32", "always", TIMED_ITERS)
+
+    def run_fn():
+        run()
+        return None, out["diag"]
+
+    own_ms = time_ms(run, reps=3)
+    rate, total, seconds = profiling.iteration_rate(run_fn, reps=3)
+    own_rate = total / (own_ms / 1e3)
+    check(total == TIMED_ITERS, f"iteration_rate counted {total} iterations")
+    check(abs(rate - own_rate) / own_rate < 0.05,
+          f"iteration_rate gives {rate:.2f} it/s, this script's CUDA "
+          f"events {own_rate:.2f} (more than 5% apart)")
+    short, _ = fit_core_runner(data, w0, "float32", "always", 3)
+    short()
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp) as prof:
+            short()
+        files = os.listdir(tmp)
+        check(len(files) == 1, f"trace wrote {files}")
+        with open(os.path.join(tmp, files[0])) as f:
+            text = f.read()
+    named = sorted({found.group(0) for e in prof.key_averages()
+                    for found in [re.search(r"chain_\w+", e.key)] if found})
+    check(named and "chain_gemm_kernel" in text,
+          f"the trace holds no kernel of ns_chain.cu (found {named})")
+    emit("profiling", iteration_rate_it_per_s=rate,
+         iteration_rate_seconds=seconds, own_it_per_s=own_rate,
+         rel_diff=abs(rate - own_rate) / own_rate, iters=total,
+         trace_bytes=len(text), trace_chain_kernels=named, card=card)
 
 
 def small_fits(card):
@@ -721,16 +1274,22 @@ def main():
          device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
-    # 2. build
-    rec = build.build("ns_chain", force=True)
+    # 2. build: the kernel (nvcc) and the host library (g++) together
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        kernel_build = pool.submit(build.build, "ns_chain", force=True)
+        host_build = pool.submit(build.build_host, force=True)
+        rec, host_rec = kernel_build.result(), host_build.result()
     build.load("ns_chain")
     ptxas, hgmma = build_checks(rec)
     emit("build", seconds=rec["seconds"], library=rec["path"],
-         spill_bytes=0, hgmma_instructions=hgmma, ptxas=ptxas)
+         spill_bytes=0, hgmma_instructions=hgmma, ptxas=ptxas,
+         host_seconds=host_rec["seconds"], host_library=host_rec["path"])
 
     # 3. kernels
-    shapes = [(10_000, 512), (400, 100), (999, 7), (257, 130), (1, 8),
-              (37, 256), (1024, 8), (300, 520), (2000, 1030)]
+    # the main paths' own shapes first: the north star, a stack's layer 2
+    shapes = [(P, M), tuple(STACK), (400, 100), (999, 7), (257, 130),
+              (1, 8), (37, 256), (1024, 8), (300, 520), (2000, 1030)]
     max_abs_err = 0.0
     names = ("aa", "hmat", "kappa", "mu", "mi_sums", "sum_log_vi")
     for p, m in shapes:
@@ -801,6 +1360,8 @@ def main():
     model_f32, launches["fit"], fit_s, _ = north_star_fit(x,
                                                           optimizer="auto")
     tc_f32 = model_f32.tc
+    fit_ref = dict(tc=tc_f32, seconds=fit_s,
+                   blocks=blocks_whole(model_f32.clusters.cpu().numpy()))
     emit("fit", n=N, p=P, m=M, data_seed=DATA_SEED, max_iter=FIT_MAX_ITER,
          tol=FIT_TOL, strategy="gram",
          optimizer=model_f32.resolved_optimizer_, fit_seconds=fit_s,
@@ -856,12 +1417,21 @@ def main():
 
     lane_launches = restart_sweeps(x, card)
     serving(model_f32, x, card)
-    del x, model_f32
+    del model_f32
+
+    # the moment-input and staged fits, at the same width
+    native_phase(x, card)
+    launches.update(streaming_phase(x, fit_ref, card))
+    launches.update(partial_fit_phase(x, card))
+    launches.update(checkpoint_phase(x, fit_ref, card))
+    launches.update(stacked_phase(x, card))
+    del x
 
     # 6. small fits on the card against the port's float64 CPU fit
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         small_fits(card)
+        launches.update(small_streaming(card))
         lane_launches.update(small_restarts(card))
         lane_launches.update(selection(dev, card))
 
@@ -977,6 +1547,7 @@ def main():
         profile_iterations(operands[mode], w0, mode, card)
     profile_iterations(operands["float32"], w0_lanes, "float32", card,
                        label=f"float32_{LANES}_lanes")
+    profiling_phase(operands["float32"], w0, card)
 
     print(json.dumps({"kernels": [{
         "name": "ns_chain", "route": "cuda",

@@ -8,7 +8,9 @@ modes (`matmul_dtype` 'float32', 'bfloat16', 'int8' with its wrap guard),
 the seeded random and spectral inits, presets, the annealed fit on the
 non-overlap and overlap objectives, the two-program `stage_subsample`
 fit, the restart sweep (`n_restarts=k`: k lanes of one solve, the best
-final TC kept), `transform` (with `details=True`), `fit_transform`, the
+final TC kept), `partial_fit` (accumulated second moments, a warm-started
+re-solve per batch), the native host route of 'empirical' preprocessing
+for NumPy inputs on the CPU, `transform` (with `details=True`), `fit_transform`, the
 serving methods (`predict`/`inverse_transform`, `get_covariance`,
 `score`, `covariance_matvec`/`matmat`/`blocks`, all from the fitted
 factor structure, never a p x p solve), the sklearn estimator protocol
@@ -28,8 +30,8 @@ Differences by design:
   copied.
 
 Options of the JAX package that are not ported yet (a mesh, the faster
-`matmul_precision` values, `partial_fit`, AOT `warmup`) raise
-NotImplementedError, each naming its ROADMAP.md queue item.
+`matmul_precision` values, AOT `warmup`) raise NotImplementedError, each
+naming its ROADMAP.md queue item.
 """
 
 from __future__ import annotations
@@ -535,6 +537,8 @@ class Corex:
     # warm-start weights held apart from fitted state (a repeated fit is
     # fresh; corex_from_numpy re-arms this so a later fit warm-starts)
     _pretrained_ws: Optional[torch.Tensor] = None
+    # the GramAccumulator of a partial_fit stream (fit drops it)
+    _partial_acc = None
 
     ws = property(lambda self: self._ws,
                   lambda self, v: setattr(self, "_ws", v),
@@ -645,6 +649,12 @@ class Corex:
     def _to_tensor(self, x, what="x") -> torch.Tensor:
         """Coerce input to a 2-D real tensor of the model dtype on the
         model device."""
+        return self._as_tensor(self._validate_input(x, what))
+
+    def _validate_input(self, x, what="x"):
+        """`_coerce_2d`, then the checks every entry point shares: finite
+        host values (unless a missing-value marker is set) and at least
+        one column. Returns the coerced array or tensor as it is."""
         x = self._coerce_2d(x, what)
         if isinstance(x, np.ndarray) and self.pre_config.missing_values \
                 is None and not np.isfinite(x).all():
@@ -656,7 +666,7 @@ class Corex:
             raise ValueError(
                 f"0 feature(s) (shape={tuple(x.shape)}) while a minimum of "
                 f"1 is required.")
-        return self._as_tensor(x)
+        return x
 
     def _check_width(self, x, what="x") -> torch.Tensor:
         """`_to_tensor`, then the fitted width."""
@@ -674,14 +684,43 @@ class Corex:
             a = np.asarray(a)
         return torch.as_tensor(a, dtype=self._dt, device=self._device)
 
+    def _host_preprocess(self, x):
+        """The native host route of 'empirical' gaussianization for NumPy
+        inputs (`csrc/gaussianize.cpp` through `utils.native`): returns
+        (x_preprocessed, theta) on the model device, equal to the torch
+        route to double precision, or None where it does not apply (another
+        mode, a tensor input, no host library, or a CUDA model).
+
+        It applies on `device="cpu"` only. On a CUDA device the torch
+        route (one device sort and two binary searches per column) is the
+        faster of the two by a wide margin at n = p = 10,000 on an H100
+        (`chip_smoke.py` phase `native` times both; PERF.md), so the rows
+        go to the card and are ranked there."""
+        pre = self.pre_config
+        if pre.gaussianize != "empirical" or not isinstance(x, np.ndarray) \
+                or self._device.type != "cpu":
+            return None
+        from linearcorex_tpu_torch.utils import native
+        if not native.available():
+            return None
+        xh = np.asarray(x, dtype=np.float64)
+        if pre.missing_values is not None:
+            xh = native.mean_impute(xh, pre.missing_values)
+        std = xh.std(0)
+        theta = P.Theta(mean=self._as_tensor(xh.mean(0)),
+                        std=self._as_tensor(np.where(std < 1e-10, 1.0, std)))
+        return self._as_tensor(native.empirical_gaussianize(xh)), theta
+
     def _prepare_fit(self, x):
         """Input validation, preprocessing (sets theta/nv/n_samples),
         moment-strategy choice and 'auto' resolution. Returns (data, cfg,
         strategy) with data the solver operand: X or the Gram matrix,
         cast to bf16 under matmul_dtype='bfloat16' or quantized (after
         preprocessing, whose standardized columns the per-tensor scale
-        relies on, and checked by the int32 wrap guard) under 'int8'."""
-        x = self._to_tensor(x)
+        relies on, and checked by the int32 wrap guard) under 'int8'.
+        A full fit is fresh: it drops any `partial_fit` accumulation."""
+        self._partial_acc = None
+        x = self._validate_input(x)
         self.n_samples, self.nv = x.shape
         if self.n_samples < 2:
             raise ValueError(f"need at least 2 samples to fit, got "
@@ -695,8 +734,12 @@ class Corex:
                              n_samples=self.n_samples)
         self.resolved_optimizer_ = cfg.optimizer
         pre = self.pre_config
-        xp, self.theta = P.fit_preprocess(x, pre.gaussianize,
-                                          pre.missing_values)
+        host = self._host_preprocess(x)
+        if host is not None:
+            xp, self.theta = host
+        else:
+            xp, self.theta = P.fit_preprocess(
+                self._as_tensor(x), pre.gaussianize, pre.missing_values)
         return prepare_operand(xp, strategy, cfg.matmul_dtype), cfg, strategy
 
     def _resolve_w0(self, init_ws, data=None, strategy=None) -> torch.Tensor:
@@ -1146,8 +1189,95 @@ class Corex:
 
     # ------------------------------------------------------------------
     def partial_fit(self, x, y=None, mesh=None, sharding_plan=None):
-        """Incremental fit over row batches: not ported yet."""
-        _not_ported("partial_fit", "item 15 (streaming)")
+        """Incremental fit over row batches (the sklearn out-of-core
+        convention, e.g. IncrementalPCA): each call folds the batch into
+        an accumulated second-moment state (`utils.streaming.
+        GramAccumulator`: one product per batch, X never held) on the
+        model device and re-solves from the accumulated correlation,
+        warm-started from the current weights, so the estimator is usable
+        after every call. `fit` resets the accumulation; `partial_fit`
+        continues it. `y` is ignored; `mesh`/`sharding_plan` belong to the
+        JAX package's sharded accumulation and raise NotImplementedError.
+
+        Equivalent to `fit(concat(batches))` with gaussianize='standard'
+        up to the W init (identical accumulated moments; the warm start
+        only changes the solver trajectory). Cost: one warm-started solve
+        per call; to accumulate once and solve once use `GramAccumulator`
+        or `fit_csv`, which this method wraps.
+
+        Named errors: gaussianize must be 'standard' (rank-based
+        'empirical' needs all data at once), missing_values is not
+        supported (mean-imputation needs the full sample matrix),
+        moment_strategy='samples' contradicts fitting from accumulated
+        moments, and n_restarts > 1 has no fresh inits to draw. Batches
+        may have any row count >= 1; the first solve needs >= 2
+        accumulated samples."""
+        del y
+        from linearcorex_tpu_torch.utils.streaming import (
+            GramAccumulator, _no_stream_mesh, _solve_from_moments)
+        _no_stream_mesh("partial_fit", mesh, sharding_plan)
+        pre = self.pre_config
+        if pre.gaussianize != "standard":
+            raise ValueError(
+                f"partial_fit accumulates second moments in one streaming "
+                f"pass, which only gaussianize='standard' semantics "
+                f"permit (got {pre.gaussianize!r}; rank-based 'empirical' "
+                f"needs all data at once)")
+        if pre.missing_values is not None:
+            raise ValueError(
+                "partial_fit fits from accumulated second moments and "
+                "cannot mean-impute missing_values (imputation needs the "
+                "full sample matrix); impute each batch before the call, "
+                "or use Corex.fit on the full data")
+        if self.config.moment_strategy == "samples":
+            raise ValueError(
+                "partial_fit solves from the accumulated correlation "
+                "matrix (gram strategy); moment_strategy='samples' "
+                "contradicts that — use 'auto' or 'gram'")
+        if self._validated_restarts(None) != 1:
+            raise ValueError(
+                "n_restarts > 1 is not supported by partial_fit: each "
+                "call warm-starts from the current weights, so restart "
+                "lanes have no fresh seeded inits to draw. Set "
+                "n_restarts=1, or run Corex(n_restarts=k).fit on the "
+                "full data.")
+        check_ported(self.config)
+        x = self._validate_input(x)        # batches of >= 1 row are legal
+        acc = self._partial_acc
+        expect = acc.p if acc is not None else self.nv
+        if expect is not None and x.shape[1] != expect:
+            # a width change mid-stream, or a new stream on an estimator
+            # fitted on data of another width: refitting from scratch
+            # would absorb a wrong-dataset fault
+            raise ValueError(
+                f"partial_fit batch has {x.shape[1]} variables; the "
+                f"{'accumulated' if acc is not None else 'fitted'} state "
+                f"has {expect} (use a fresh estimator — sklearn.clone — "
+                f"to change the width)")
+        if acc is None:
+            acc = GramAccumulator(x.shape[1], dtype=self.config.dtype,
+                                  device=self._device)
+        # host arrays were screened for NaN/inf above: hand the
+        # accumulator a tensor, so update() does not scan them again
+        acc.update(self._as_tensor(x))
+        self._partial_acc = acc   # commit before solving: the batch is
+        #                           folded in even if this call cannot
+        #                           solve yet (one sample, below)
+        if acc.n_samples < 2:
+            warnings.warn(
+                "partial_fit has accumulated a single sample; the first "
+                "solve needs >= 2. The batch is retained — the next "
+                "partial_fit call will fit.")
+            return self
+        warm = self.ws
+        if warm is not None and tuple(warm.shape) != (self.m, acc.p):
+            warm = None   # stale shape (n_hidden changed via set_params)
+        corr, mean, std = acc._moments()
+        _solve_from_moments(self, corr, mean, std, acc.n_samples,
+                            init_ws=warm)
+        if self.verbose:
+            self._print_verbose()
+        return self
 
     def warmup(self, *args, **kwargs):
         """Ahead-of-time compilation of the JAX package's XLA programs:

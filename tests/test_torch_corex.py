@@ -164,6 +164,17 @@ def test_corex_from_numpy_carries_a_jax_fit(data, tmp_path):
     assert np.array_equal(c.clusters.numpy(), np.asarray(j.clusters))
     # a later fit warm-starts from the carried weights, as after load_corex
     assert torch.equal(c._resolve_w0(None), c.ws)
+    # the sample count and the kept lane come across with the arrays
+    assert (c.n_samples, c.best_restart_) == (j.n_samples, 0) == (1000, 0)
+    assert f"n_samples=1000, tc={j.tc:.4f}" in repr(c)
+    bare = {k: v for k, v in state.items() if k != "meta_json"}
+    c2 = lct.corex_from_numpy(bare, n_hidden=8, dtype="float64",
+                              device="cpu")
+    assert (c2.n_samples, c2.best_restart_) == (None, 0)
+    c3 = lct.corex_from_numpy(bare, n_samples=77, best_restart=2,
+                              n_hidden=8, dtype="float64", device="cpu")
+    assert (c3.n_samples, c3.best_restart_) == (77, 2)
+    assert "n_samples=77" in repr(c3)
 
 
 def test_config_fields_and_defaults_match_jax():
@@ -286,8 +297,36 @@ def test_not_fitted_and_surface(data):
         bad.fit(data)
 
 
+PORT_MODULES = ["config", "core.solver", "models.corex", "models.selection",
+                "models.stacked", "ops.cuda_moments", "ops.moments",
+                "ops.preprocessing", "parallel.restarts", "utils.build",
+                "utils.checkpoint", "utils.interop", "utils.native",
+                "utils.profiling", "utils.streaming"]
+
+
+def test_port_exports_all_but_the_xla_warmups():
+    """The names of the JAX package's surface that the port lacks are the
+    ahead-of-time compilation helpers, which have no eager counterpart."""
+    assert lct.__version__ == lc.__version__
+    missing = set(lc.__all__) - set(lct.__all__)
+    assert missing == {"warmup_sweep", "ensure_compile_cache", "warmup_fit",
+                       "warmup_serving"}
+    for name in lct.__all__:
+        assert getattr(lct, name) is not None
+    assert lct.QuantizedData is lct.quantize_gram(torch.eye(4)).__class__
+
+
+def test_port_module_list_is_complete():
+    root = pathlib.Path(lct.__file__).resolve().parent
+    found = sorted(
+        str(f.relative_to(root).with_suffix("")).replace("/", ".")
+        for f in root.rglob("*.py") if f.name != "__init__.py")
+    assert found == sorted(PORT_MODULES)
+
+
 def test_import_leaves_jax_out():
-    code = ("import sys, linearcorex_tpu_torch; "
+    mods = ", ".join(f"linearcorex_tpu_torch.{m}" for m in PORT_MODULES)
+    code = (f"import sys, linearcorex_tpu_torch, {mods}; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert 'linearcorex_tpu' not in sys.modules; print('ok')")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -306,3 +306,107 @@ def test_small_sweep_on_card_agrees_with_cpu(overlap):
     assert abs(lane.tc - cpu.tc) / abs(cpu.tc) < 1e-3
     assert np.array_equal(gpu.clusters.cpu().numpy(), cpu.clusters.numpy())
     assert abs(gpu.tc - cpu.tc) / abs(cpu.tc) < 1e-3
+
+
+def _small_blocks():
+    rng = np.random.RandomState(3)
+    x = np.repeat(rng.normal(size=(2000, 8)), 32, axis=1) * 0.9 \
+        + 0.436 * rng.normal(size=(2000, 256))
+    return x, rng.normal(scale=1 / 16, size=(8, 256))
+
+
+def _agree(gpu, cpu):
+    assert np.array_equal(gpu.clusters.cpu().numpy(), cpu.clusters.numpy())
+    assert abs(gpu.tc - cpu.tc) / abs(cpu.tc) < 1e-3
+
+
+@pytest.mark.cuda
+def test_streamed_fit_on_card_agrees_with_cpu():
+    """Five batches into a GramAccumulator on the card, then the fit
+    through the chain kernel, and a 4-batch partial_fit, against the
+    port's float64 CPU results from the same W0."""
+    _need_cuda()
+    x, w0 = _small_blocks()
+    kw = dict(n_hidden=8, seed=0, max_iter=2000, pretrained_weights=w0)
+    acc = lct.GramAccumulator(256)
+    ref = lct.GramAccumulator(256, dtype="float64", device="cpu")
+    for i in range(0, 2000, 400):
+        acc.update(x[i:i + 400])
+        ref.update(x[i:i + 400])
+    assert acc._g.is_cuda and acc.device.type == "cuda"
+    corr = acc.correlation()
+    assert float((corr.cpu().double() - ref.correlation()).abs().max()) \
+        < 1e-5
+    before = CM.ns_chain.launches
+    gpu = acc.fit(use_pallas="always", **kw)
+    assert CM.ns_chain.launches > before and gpu.ws.is_cuda
+    _agree(gpu, ref.fit(**kw))
+    pf_gpu = lct.Corex(use_pallas="always", **kw)
+    pf_cpu = lct.Corex(dtype="float64", device="cpu", **kw)
+    before = CM.ns_chain.launches
+    for i in range(0, 2000, 500):
+        pf_gpu.partial_fit(x[i:i + 500])
+        pf_cpu.partial_fit(x[i:i + 500])
+    assert CM.ns_chain.launches > before and pf_gpu.n_samples == 2000
+    _agree(pf_gpu, pf_cpu)
+
+
+@pytest.mark.cuda
+def test_save_load_and_checkpoints_on_card(tmp_path):
+    """save_corex → load_corex on the card serves bitwise what was saved,
+    and the same within 1e-5 when loaded on the CPU; the checkpointed fit
+    runs the kernel in every stage and agrees with the float64 CPU fit."""
+    _need_cuda()
+    from linearcorex_tpu_torch.utils.checkpoint import fit_with_checkpoints
+    x, w0 = _small_blocks()
+    kw = dict(n_hidden=8, seed=0, max_iter=2000)
+    gpu = lct.Corex(use_pallas="always", **kw)
+    per_stage = []
+
+    def cb(stage, eps, ws, stats):
+        per_stage.append(CM.ns_chain.launches)
+        assert ws.is_cuda
+
+    before = CM.ns_chain.launches
+    fit_with_checkpoints(gpu, x, str(tmp_path / "ck"), init_ws=w0,
+                         stage_callback=cb)
+    assert all(b > a for a, b in zip([before] + per_stage, per_stage))
+    cpu = lct.Corex(dtype="float64", device="cpu", **kw).fit(x, init_ws=w0)
+    _agree(gpu, cpu)
+    path = str(tmp_path / "m.npz")
+    lct.save_corex(gpu, path)
+    again = lct.load_corex(path)
+    assert again.ws.is_cuda and again.device == "cuda"
+    xt = torch.as_tensor(x, dtype=torch.float32, device="cuda")
+    y = gpu.transform(xt)
+    assert torch.equal(again.transform(xt), y)
+    host = lct.load_corex(path, device="cpu")
+    y_host = host.transform(x)
+    assert not y_host.is_cuda
+    assert float((y_host - y.cpu()).abs().max()) \
+        <= 1e-5 * float(y.abs().max())
+
+
+@pytest.mark.cuda
+def test_two_layer_stack_on_card_agrees_with_cpu():
+    """Eight fine blocks under two coarse factors, so that layer 2 has a
+    structure to find (on independent blocks its clusters are noise)."""
+    _need_cuda()
+    rng = np.random.RandomState(3)
+    coarse = rng.normal(size=(2000, 2))
+    fine = 0.8 * np.repeat(coarse, 4, axis=1) + 0.6 * rng.normal(
+        size=(2000, 8))
+    x = np.repeat(fine, 32, axis=1) * 0.9 + 0.436 * rng.normal(
+        size=(2000, 256))
+    kw = dict(seed=0, max_iter=2000)
+    before = CM.ns_chain.launches
+    gpu = lct.StackedCorex([8, 2], use_pallas="always", **kw).fit(x)
+    assert CM.ns_chain.launches > before
+    cpu = lct.StackedCorex([8, 2], dtype="float64", device="cpu",
+                           **kw).fit(x)
+    for lg, lcpu in zip(gpu.layers, cpu.layers):
+        assert lg.ws.is_cuda
+        _agree(lg, lcpu)
+    ys = gpu.transform_all(x)
+    assert all(y.is_cuda for y in ys)
+    assert tuple(gpu.predict(ys[-1]).shape) == x.shape

@@ -251,7 +251,7 @@ def test_pandas_output_and_pickle():
 
 # sklearn's battery calls predict with feature-space X; the reference API
 # defines predict(Y) on factors (tests/test_sklearn_interop.py pins the
-# same set for the JAX package). Two more are the port's own.
+# same set for the JAX package). One more is the port's own.
 _PREDICT_SEMANTICS = "predict takes the (n, m) FACTOR matrix"
 _EXPECTED_FAILURES = {
     "check_estimators_dtypes": _PREDICT_SEMANTICS,
@@ -263,8 +263,6 @@ _EXPECTED_FAILURES = {
     "check_methods_subset_invariance": _PREDICT_SEMANTICS,
     "check_dict_unchanged": _PREDICT_SEMANTICS,
     "check_n_features_in_after_fitting": _PREDICT_SEMANTICS,
-    # partial_fit exists and raises NotImplementedError (ROADMAP item 15)
-    "check_fit_score_takes_y": "partial_fit is not ported",
     # outputs are torch tensors, whose dtype numpy.issubdtype refuses
     "check_fit_idempotent": "torch tensor outputs",
 }

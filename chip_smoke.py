@@ -68,6 +68,23 @@ non-zero and does not print the final line.
              last covariance_blocks(4096) blocks equal to those rows of
              get_covariance(); score(x) finite and above the score of x
              with its columns shuffled.
+   sharded   a world of one rank on the card (torch.distributed, NCCL
+             by default, a file rendezvous, no network; the backend is
+             printed): Corex(n_hidden=512, optimizer='auto', seed=0).fit(x,
+             mesh=make_mesh()) in float32 and with matmul_dtype='int8'. The
+             plan rule must resolve the samples strategy, and the fit must
+             be the plain moment_strategy='samples' fit from the same W0
+             bit for bit (W, TC, iterations per stage), through the kernel
+             with the same launches; its collectives (kind, op, axis,
+             bytes, calls) must be one (p, m) all-reduce per objective
+             evaluation and one for the final moments (int8: a max of m
+             floats and an int32 sum per evaluation). Corex(n_restarts=4)
+             .fit(x, mesh=make_mesh((("restarts", 1),))) must be the plain
+             4-lane sweep bit for bit, through the lane kernel, with
+             nothing on the restarts axis but the gathers that end it;
+             transform(mesh=) and score(mesh=) on the float32 model bitwise
+             the plain calls. Reported: wall seconds and iterations/s of
+             the mesh fit and the plain samples fit, beside the gram fit's.
    streaming x in ten batches of 1000 rows into GramAccumulator(P) on the
              card: correlation() within 1e-5 of compute_gram of the
              standardized x; acc.fit(n_hidden=512, optimizer='auto',
@@ -430,12 +447,14 @@ def restart_sweeps(x, card):
     """Phase fit_restarts: the north-star sweep in float32 and int8 through
     Corex(n_restarts=4).fit, each against four single fits (seeds 0-3).
     The lanes' TCs are read where the fit picks its winner
-    (parallel.restarts.best_restart). Returns {path: lane launches}."""
+    (parallel.restarts.best_restart). Returns ({path: lane launches}, the
+    float32 sweep's result for the sharded phase to hold its own
+    against)."""
     import numpy as np
     import torch
     from linearcorex_tpu_torch.parallel import restarts as R
 
-    launches = {}
+    launches, sweep_ref = {}, None
     real = R.best_restart
     for name, kw in (("fit_restarts", {}),
                      ("fit_restarts_int8", dict(matmul_dtype="int8"))):
@@ -477,8 +496,184 @@ def restart_sweeps(x, card):
              bytes_per_extra_lane=(sweep_peak - single_peak) / (LANES - 1),
              singles=singles, warnings=msgs, card=card,
              **{k: v for k, v in fields.items() if k != "tc_f32_same_w0"})
+        if sweep_ref is None:
+            sweep_ref = sweep_result(model, launches[name], sweep_s)
         del model
-    return launches
+    return launches, sweep_ref
+
+
+def sweep_result(model, launches, seconds):
+    """What the sharded phase compares of a restart sweep."""
+    return dict(ws=model.ws.clone(), tc=model.tc, best=model.best_restart_,
+                iters=model.diagnostics.iters_per_stage.tolist(),
+                launches=launches, seconds=seconds)
+
+
+def sharded_phase(x, card, sweep_ref=None, backend="nccl"):
+    """Phase sharded: the mesh forms of Corex.fit, the restart sweep,
+    transform and score in a world of one rank on the card, each held bit
+    for bit against its plain form (`sweep_ref`: the plain float32 sweep,
+    fitted here when not given). Returns ({path: launches}, {path: lane
+    launches}) of the mesh runs."""
+    import torch
+    import torch.distributed as dist
+
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.parallel import sharding as S
+    from linearcorex_tpu_torch.parallel.launch import init_local_group
+
+    def fit_kw(**kw):
+        return dict(n_hidden=M, seed=0, tol=FIT_TOL, max_iter=FIT_MAX_ITER,
+                    optimizer="auto", device="cuda", **kw)
+
+    def counts():
+        return [dict(c._asdict(), calls=n)
+                for c, n in S.collective_counts().items()]
+
+    launches, lane_launches = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init_local_group(backend, 0, 1, os.path.join(tmp, "rendezvous"),
+                         timeout=600.0)
+        try:
+            mesh = S.make_mesh()
+            check(tuple(mesh.mesh_dim_names) == (S.DATA_AXIS,)
+                  and mesh.device_type == "cuda",
+                  f"make_mesh() gave {mesh}")
+            emit("sharded_world", backend=dist.get_backend(), world_size=1,
+                 rendezvous="file://", init_seconds=time.perf_counter() - t0,
+                 nccl_socket_ifname=os.environ.get("NCCL_SOCKET_IFNAME"),
+                 card=card)
+            # one (p, m) float32 all-reduce alone, as the fit makes it
+            part = torch.zeros((P, M), device="cuda")
+            axes = S.sample_axes(mesh, S.ShardingPlan())
+            reduce_ms = time_ms(lambda: S.all_reduce(part, axes), inner=20)
+            clone_ms = time_ms(lambda: part.clone(), inner=20)
+            del part
+            S.reset_collective_counts()
+            emit("sharded_all_reduce", backend=dist.get_backend(), p=P, m=M,
+                 bytes=P * M * 4, all_reduce_ms=reduce_ms,
+                 of_which_clone_ms=clone_ms, card=card)
+            model_f32 = None
+            for name, kw in (("sharded", {}),
+                             ("sharded_int8", dict(matmul_dtype="int8"))):
+                # turns mesh, plain, plain, mesh: the first fit of a kind
+                # pays the set-up of its GEMM shapes and of the group
+                model = lct.Corex(**fit_kw(**kw))
+                S.reset_collective_counts()
+                _, launches[name], mesh_s, msgs = counted(
+                    lambda: model.fit(x, mesh=mesh))
+                calls = counts()
+                plain = lct.Corex(**fit_kw(moment_strategy="samples", **kw))
+                _, plain_launches, plain_s, _ = counted(lambda: plain.fit(x))
+                again = lct.Corex(**fit_kw(moment_strategy="samples", **kw))
+                plain_s = min(plain_s, counted(lambda: again.fit(x))[2])
+                check(torch.equal(again.ws, plain.ws),
+                      f"{name}: two plain fits differ")
+                again = lct.Corex(**fit_kw(**kw))
+                mesh_s = min(mesh_s, counted(
+                    lambda: again.fit(x, mesh=mesh))[2])
+                check(torch.equal(again.ws, model.ws),
+                      f"{name}: two mesh fits differ")
+                del again
+                iters = model.diagnostics.iters_per_stage.tolist()
+                check(launches[name] > 0, f"{name}: the mesh fit never "
+                      f"launched the chain kernel")
+                check(model.resolved_optimizer_ == "fixed_point",
+                      f"{name}: optimizer resolved to "
+                      f"{model.resolved_optimizer_}")
+                check(torch.equal(model.ws, plain.ws) and model.tc == plain.tc
+                      and iters == plain.diagnostics.iters_per_stage.tolist()
+                      and launches[name] == plain_launches,
+                      f"{name}: the world-of-one mesh fit is not the plain "
+                      f"samples-strategy fit bit for bit (TC {model.tc} "
+                      f"against {plain.tc}, iterations {iters} against "
+                      f"{plain.diagnostics.iters_per_stage.tolist()})")
+                check(torch.equal(model.theta.mean, plain.theta.mean)
+                      and torch.equal(model.theta.std, plain.theta.std),
+                      f"{name}: theta differs from the plain fit's")
+                guard = [w for w in msgs if "overflow" in w]
+                check(not guard, f"{name}: the int8 wrap guard spoke: "
+                      f"{guard}")
+                evals = sum(iters) + len(iters)
+                sums = [c for c in calls if c["op"] == "sum"
+                        and c["numel"] == P * M]
+                check(all(c["kind"] == "all_reduce" and c["axis"]
+                          == S.DATA_AXIS for c in calls)
+                      and sum(c["calls"] for c in sums) == evals + 1
+                      # besides: the per-column maxima (m floats) and the
+                      # set-up's scale and wrap-guard sums (<= p values)
+                      and all(c["numel"] == P * M or c["numel"] <= P
+                              for c in calls),
+                      f"{name}: unexpected collectives {calls} for {evals} "
+                      f"objective evaluations")
+                n_iter = model.n_iter_
+                emit(name, backend=dist.get_backend(), strategy="samples",
+                     bitwise_plain_samples_fit=True, tc=model.tc,
+                     n_iter=n_iter, iters_per_stage=iters,
+                     kernel_launches=launches[name],
+                     objective_evaluations=evals, collectives=calls,
+                     mesh_fit_seconds=mesh_s, plain_fit_seconds=plain_s,
+                     mesh_it_per_s=n_iter / mesh_s,
+                     plain_it_per_s=n_iter / plain_s,
+                     blocks_whole=blocks_whole(
+                         model.clusters.cpu().numpy()),
+                     warnings=msgs, card=card, **kw)
+                if model_f32 is None:
+                    model_f32 = model
+                    y = model.transform(x, mesh=mesh)
+                    score = model.score(x, mesh=mesh)
+                    check(torch.equal(y, plain.transform(x)),
+                          "transform(mesh=) differs from the plain call")
+                    check(torch.equal(score, plain.score(x)),
+                          "score(mesh=) differs from the plain call")
+                    check(tuple(y.shape) == (N, M)
+                          and bool(torch.isfinite(y).all())
+                          and bool(torch.isfinite(score)),
+                          "mesh serving is not finite")
+                    emit("sharded_serving", transform_bitwise=True,
+                         score_bitwise=True, score=float(score),
+                         plan=str(model._serving_plan), card=card)
+                del plain, model
+            del model_f32
+
+            rmesh = S.make_mesh((("restarts", 1),))
+            if sweep_ref is None:
+                plain = lct.Corex(**fit_kw(n_restarts=LANES))
+                _, n_l, s_l, _ = counted(lambda: plain.fit(x), lanes=True)
+                sweep_ref = sweep_result(plain, n_l, s_l)
+                del plain
+            sweep = lct.Corex(**fit_kw(n_restarts=LANES))
+            S.reset_collective_counts()
+            _, lane_launches["sharded_restarts"], sweep_s, _ = counted(
+                lambda: sweep.fit(x, mesh=rmesh), lanes=True)
+            calls = counts()
+            iters = sweep.diagnostics.iters_per_stage.tolist()
+            check(lane_launches["sharded_restarts"] > 0,
+                  "the mesh sweep never launched the lane kernel")
+            check(torch.equal(sweep.ws, sweep_ref["ws"])
+                  and sweep.tc == sweep_ref["tc"]
+                  and sweep.best_restart_ == sweep_ref["best"]
+                  and iters == sweep_ref["iters"]
+                  and lane_launches["sharded_restarts"]
+                  == sweep_ref["launches"],
+                  f"the restarts-axis sweep is not the plain sweep bit for "
+                  f"bit (TC {sweep.tc} against {sweep_ref['tc']}, lane "
+                  f"{sweep.best_restart_} against {sweep_ref['best']})")
+            check(calls and all(c["kind"] == "all_gather" and c["axis"]
+                                == "restarts" and c["calls"] == 1
+                                for c in calls),
+                  f"the restarts-axis sweep made {calls}")
+            emit("sharded_restarts", backend=dist.get_backend(), lanes=LANES,
+                 bitwise_plain_sweep=True, tc=sweep.tc,
+                 best_restart=sweep.best_restart_, iters_per_stage=iters,
+                 lane_kernel_launches=lane_launches["sharded_restarts"],
+                 collectives=calls, mesh_sweep_seconds=sweep_s,
+                 plain_sweep_seconds=sweep_ref["seconds"], card=card)
+            del sweep
+        finally:
+            dist.destroy_process_group()
+    return launches, lane_launches
 
 
 def serving(model, x, card):
@@ -1415,9 +1610,15 @@ def main():
          fit_seconds=plain_s, card=card)
     del model, plain, thr
 
-    lane_launches = restart_sweeps(x, card)
+    lane_launches, sweep_ref = restart_sweeps(x, card)
     serving(model_f32, x, card)
     del model_f32
+
+    # the mesh forms, in a world of one rank on this card
+    mesh_launches, mesh_lane_launches = sharded_phase(x, card, sweep_ref)
+    launches.update(mesh_launches)
+    lane_launches.update(mesh_lane_launches)
+    del sweep_ref
 
     # the moment-input and staged fits, at the same width
     native_phase(x, card)

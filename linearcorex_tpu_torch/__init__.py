@@ -15,6 +15,11 @@ It imports torch and never JAX. Usage:
     c = acc.fit(n_hidden=8, seed=0)
     lct.save_corex(c, "model.npz"); c = lct.load_corex("model.npz")
     s = lct.StackedCorex([8, 2], seed=0).fit(x)       # a hierarchy
+
+Over several devices (one process per device, `torch.distributed`):
+
+    from linearcorex_tpu_torch.parallel.sharding import make_mesh
+    c = lct.Corex(n_hidden=8, seed=0).fit(x, mesh=make_mesh())  # every rank
 """
 
 from linearcorex_tpu_torch.config import CorexConfig, PreprocessConfig

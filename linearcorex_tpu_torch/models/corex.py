@@ -1,7 +1,8 @@
-"""The `Corex` estimator of the PyTorch port: single-device fit and
-inference.
+"""The `Corex` estimator of the PyTorch port: fit and inference on one
+device, and over a device mesh for plans over the sample and restart
+axes.
 
-Port of the single-device surface of `linearcorex_tpu/models/corex.py`:
+Port of `linearcorex_tpu/models/corex.py`:
 the constructor surface (stored verbatim, validated at first use), the
 'auto' resolution of the optimizer and of the chain kernel, the operand
 modes (`matmul_dtype` 'float32', 'bfloat16', 'int8' with its wrap guard),
@@ -18,6 +19,13 @@ and the fitted properties `tc`, `tcs`, `mis`, `clusters`, `history` and
 `n_iter_`. sklearn and pandas are imported only where a method needs
 them.
 
+`fit(mesh=...)`, `fit_transform` and the serving methods take a
+`torch.distributed` DeviceMesh and a `ShardingPlan` over the sample axes
+(`parallel.sharding` states the model of execution: every rank makes the
+same call, keeps its own row block, and gets the whole result);
+`n_restarts=k` under a mesh splits the lanes over its `restarts` axis
+(`parallel.restarts`).
+
 Differences by design:
 - `device` (default "cuda") names where the fit runs. A CUDA device that
   is not there raises; nothing moves to the CPU behind the caller's back.
@@ -29,7 +37,8 @@ Differences by design:
   mode. The JAX package's m >= 128 gate was a TPU measurement and is not
   copied.
 
-Options of the JAX package that are not ported yet (a mesh, the faster
+Options of the JAX package that are not ported yet (plans that shard
+the variable or factor axis, a mesh in the moment-input fits, the faster
 `matmul_precision` values, AOT `warmup`) raise NotImplementedError, each
 naming its ROADMAP.md queue item.
 """
@@ -55,8 +64,13 @@ from linearcorex_tpu_torch.ops import moments as M
 from linearcorex_tpu_torch.ops import preprocessing as P
 from linearcorex_tpu_torch.ops.cuda_moments import chain_supported
 from linearcorex_tpu_torch.parallel import restarts as R
+from linearcorex_tpu_torch.parallel import sharding as S
+from linearcorex_tpu_torch.parallel.collectives import all_gather_rows
+from linearcorex_tpu_torch.parallel.sharding import DATA_AXIS, ShardingPlan
 
-__all__ = ["Corex", "NotFittedError", "resolve_config", "resolve_optimizer"]
+__all__ = ["Corex", "NotFittedError", "resolve_config", "resolve_optimizer",
+           "pick_fit_strategy", "resolve_restart_mesh_layout",
+           "RESTART_AXIS"]
 
 
 class NotFittedError(ValueError, AttributeError):
@@ -93,15 +107,16 @@ def _not_ported(what: str, item: str):
 
 
 def _no_mesh(what: str, mesh, sharding_plan=None) -> None:
+    """The moment-input and staged fits and the stack have no mesh form
+    yet (their Σ is kept as row blocks over the variable axis)."""
     if mesh is not None or sharding_plan is not None:
         _not_ported(f"{what}(mesh=..., sharding_plan=...)",
-                    "item 17 (sharding)")
+                    "item 17e (moment-input and staged fits over a mesh)")
 
 
-def check_ported(cfg: CorexConfig, mesh=None) -> None:
+def check_ported(cfg: CorexConfig) -> None:
     """Raise NotImplementedError, by name, for an option of the JAX
     package that the port does not run yet."""
-    _no_mesh("fit", mesh)
     if cfg.matmul_precision not in ("default", "highest"):
         _not_ported(f"matmul_precision={cfg.matmul_precision!r}",
                     "item 1 (config)")
@@ -153,6 +168,71 @@ def resolve_config(cfg: CorexConfig, nv: int, device,
     return dataclasses.replace(cfg, use_pallas="always" if ok else "never")
 
 
+def pick_fit_strategy(config: CorexConfig, n: int, p: int,
+                      plan=None) -> str:
+    """moment_strategy resolution for a fit, with the plan rule: a
+    sample-sharding plan turns 'auto' from gram to samples, because
+    distributing X over the mesh is the point of such a plan and a Gram
+    operand carries no sample axis to shard."""
+    strategy = config.pick_strategy(n, p)
+    if (strategy == "gram" and plan is not None
+            and (plan.shard_samples or plan.shard_slices)
+            and not plan.shard_vars):
+        if config.moment_strategy == "auto":
+            return "samples"
+        # an explicit 'gram': honored, but a sample-only plan has no axis
+        # of the Gram operand to shard, so the mesh fit runs replicated
+        warnings.warn(
+            "moment_strategy='gram' with a ShardingPlan that shards only "
+            "sample axes: a Gram operand carries no sample axis, so the "
+            "mesh fit will run fully REPLICATED (every device holds the "
+            "whole p x p operand and does the whole work). Use "
+            "ShardingPlan(shard_vars=True) to shard the Gram rows, or "
+            "moment_strategy='auto'/'samples' to shard the sample axis.")
+    return strategy
+
+
+RESTART_AXIS = "restarts"  # mesh axis the restart lanes split over
+
+
+def resolve_restart_mesh_layout(mesh, plan):
+    """Layout for `Corex(n_restarts>1).fit(mesh=...)`. Returns
+    (strategy_plan, data_axis):
+
+    - strategy_plan is what `pick_fit_strategy`/`_prepare_fit` see: the
+      caller's plan when the mesh carries DATA_AXIS and the plan shards
+      samples (the combined restarts x data layout; the operand is then
+      prepared sharded, so the raw X never lands whole on one device),
+      else None (restart-only: every rank holds the whole operand).
+    - data_axis is the sample-sharding mesh axis for
+      `parallel.restarts.fit_restarts_sharded`, or None. Callers drop it
+      to None when the resolved strategy is not 'samples'.
+
+    The lanes always split over the RESTART_AXIS ('restarts') mesh axis;
+    var/factor/slice sharding has no restart-sweep form. Both raise by
+    name."""
+    if RESTART_AXIS not in mesh.mesh_dim_names:
+        raise ValueError(
+            f"n_restarts > 1 under fit(mesh=...): the restart lanes "
+            f"shard over a mesh axis named {RESTART_AXIS!r}, but the "
+            f"mesh has axes {tuple(mesh.mesh_dim_names)}. Build it with "
+            f"that axis — make_mesh((({RESTART_AXIS!r}, n_devices),)), or "
+            f"the combined restarts x data layout make_mesh"
+            f"((({RESTART_AXIS!r}, a), ({DATA_AXIS!r}, b))) — or call "
+            f"parallel.restarts.fit_restarts_sharded directly for a "
+            f"custom axis name.")
+    if plan.shard_vars or plan.shard_factors or plan.shard_slices:
+        raise ValueError(
+            "n_restarts > 1 under fit(mesh=...) supports sample "
+            "sharding only (the combined restarts x data layout); "
+            "var/factor/slice sharding has no restart-sweep program. "
+            "Use n_restarts=1 for those layouts, or drop them from the "
+            "ShardingPlan.")
+    if plan.shard_samples and DATA_AXIS in mesh.mesh_dim_names:
+        return plan, DATA_AXIS
+    return None, None
+
+
 def chain_mode(cfg: CorexConfig) -> bool:
     """The chain_kernel flag ops.moments takes."""
     return cfg.use_pallas == "always"
@@ -168,8 +248,7 @@ def _make_obj_grad(data, cfg: CorexConfig, strategy: str):
             "optimizer='auto' must be resolved against the data shapes "
             "before building the objective — call resolve_config(cfg, nv, "
             "device, n_samples=n) first (Corex.fit does)")
-    if cfg.matmul_dtype == "int8" and not isinstance(data,
-                                                     M.QuantizedData):
+    if cfg.matmul_dtype == "int8" and not M.is_quantized(data):
         # the int8 mode is carried by the operand (ops.moments dispatches
         # on QuantizedData); a plain tensor here would silently run f32
         raise ValueError(
@@ -233,9 +312,14 @@ def prepare_operand(xp, strategy: str, matmul_dtype: str):
     """The solver operand from preprocessed rows: X or its Gram matrix,
     cast to bf16 under matmul_dtype='bfloat16', or quantized with the
     int32 wrap guard under 'int8' (after preprocessing, whose
-    standardized columns the per-tensor scale relies on)."""
+    standardized columns the per-tensor scale relies on). `xp` may be a
+    `ShardedSamples` row block (the mesh-aware prepare): the Gram matrix
+    then sums the ranks' partial products and comes out replicated; the
+    samples operand stays sharded."""
     data = M.compute_gram(xp) if strategy == "gram" else xp
     if matmul_dtype == "bfloat16":
+        if isinstance(data, M.ShardedSamples):
+            return data._replace(local=data.local.to(torch.bfloat16))
         return data.to(torch.bfloat16)
     if matmul_dtype == "int8":
         return M.quantize_samples(data)
@@ -417,12 +501,14 @@ def _matmat_overlap(cy, c_xy, std, v):
     return std[:, None] * (low + (1.0 - diag)[:, None] * sv)
 
 
-def _gaussian_ll(xp, z, std):
+def _gaussian_ll(xp, z, std, axes=()):
     """Mean Gaussian log-likelihood of preprocessed rows under Σ̂_std =
     diag(d) + ZᵀZ (d = 1 − Σ_j z_ji², the unit-diagonal completion),
     through Woodbury and the matrix determinant lemma: O(n·p·m + m³), the
     p x p never materializes. The `− Σ log std` term maps the density back
-    through the affine standardization to the data's own scale."""
+    through the affine standardization to the data's own scale. Rows split
+    over the mesh `axes`: the per-row likelihoods (n values) are gathered
+    and the mean taken over all of them on every rank."""
     p = xp.shape[1]
     mdim = z.shape[0]
     d = torch.clamp(1.0 - torch.sum(z * z, dim=0), min=1e-6)
@@ -438,7 +524,7 @@ def _gaussian_ll(xp, z, std):
     q2 = torch.sum(u.T * sol, dim=0)
     log2pi = torch.log(torch.tensor(2.0 * math.pi, dtype=xp.dtype,
                                     device=xp.device))
-    ll = -0.5 * (q1 - q2 + logdet + p * log2pi)
+    ll = all_gather_rows(-0.5 * (q1 - q2 + logdet + p * log2pi), axes)
     return torch.mean(ll) - torch.sum(torch.log(std))
 
 
@@ -539,6 +625,11 @@ class Corex:
     _pretrained_ws: Optional[torch.Tensor] = None
     # the GramAccumulator of a partial_fit stream (fit drops it)
     _partial_acc = None
+    # the ShardingPlan of the last mesh fit or mesh serving call; serving
+    # calls with sharding_plan=None reuse it. None: single-device state.
+    _serving_plan = None
+    # the seed of an UNSEEDED mesh fit, shared by its ranks while it runs
+    _mesh_seed = None
 
     ws = property(lambda self: self._ws,
                   lambda self, v: setattr(self, "_ws", v),
@@ -600,6 +691,12 @@ class Corex:
         return self.n_hidden
 
     @property
+    def _fit_seed(self):
+        """The seed the inits of the running fit draw from: `seed`, or
+        under a mesh the one its ranks share (`sharding.shared_seed`)."""
+        return self.seed if self._mesh_seed is None else self._mesh_seed
+
+    @property
     def _dt(self) -> torch.dtype:
         return torch_dtype(self.config.dtype)
 
@@ -611,12 +708,12 @@ class Corex:
         """N(0, 1/sqrt(p)) init. Seeded: NumPy's RandomState, so a seed
         gives the same W0 as the JAX package and the float64 oracle.
         Unseeded: drawn on the device from fresh entropy."""
-        if self.seed is None:
+        if self._fit_seed is None:
             gen = torch.Generator(device=self._device)
             gen.seed()
             return torch.randn((self.m, p), generator=gen, dtype=self._dt,
                                device=self._device) / float(np.sqrt(p))
-        rng = np.random.RandomState(self.seed)
+        rng = np.random.RandomState(self._fit_seed)
         w = rng.normal(loc=0.0, scale=1.0 / np.sqrt(p), size=(self.m, p))
         return torch.as_tensor(w, dtype=self._dt, device=self._device)
 
@@ -668,9 +765,12 @@ class Corex:
                 f"1 is required.")
         return x
 
-    def _check_width(self, x, what="x") -> torch.Tensor:
-        """`_to_tensor`, then the fitted width."""
-        x = self._to_tensor(x, what)
+    def _check_width(self, x, what="x", move=True):
+        """`_to_tensor`, then the fitted width. move=False validates
+        without moving a host array to the device (a mesh call moves only
+        this rank's rows)."""
+        x = self._to_tensor(x, what) if move else self._validate_input(
+            x, what)
         if x.shape[1] != self.nv:
             raise ValueError(
                 f"{what} must be 2-D with {self.nv} columns (the fitted "
@@ -711,14 +811,25 @@ class Corex:
                         std=self._as_tensor(np.where(std < 1e-10, 1.0, std)))
         return self._as_tensor(native.empirical_gaussianize(xh)), theta
 
-    def _prepare_fit(self, x):
+    def _prepare_fit(self, x, resolve=True, plan=None, mesh=None):
         """Input validation, preprocessing (sets theta/nv/n_samples),
         moment-strategy choice and 'auto' resolution. Returns (data, cfg,
         strategy) with data the solver operand: X or the Gram matrix,
         cast to bf16 under matmul_dtype='bfloat16' or quantized (after
         preprocessing, whose standardized columns the per-tensor scale
         relies on, and checked by the int32 wrap guard) under 'int8'.
-        A full fit is fresh: it drops any `partial_fit` accumulation."""
+        A full fit is fresh: it drops any `partial_fit` accumulation.
+
+        resolve=False leaves use_pallas='auto' for a sharded fit that
+        resolves it against its own mesh. `plan` (a ShardingPlan, mesh
+        fits only) informs moment_strategy='auto' (`pick_fit_strategy`).
+        With `mesh`, each rank takes its row block of the raw X per the
+        plan BEFORE anything else, so neither the raw nor the
+        standardized X ever lies whole on one device: the column
+        statistics come from per-rank sums, and the operand comes out as
+        `ShardedSamples` (a Gram operand as the sum of the ranks'
+        products, replicated). The native host route of 'empirical' is
+        skipped under a mesh."""
         self._partial_acc = None
         x = self._validate_input(x)
         self.n_samples, self.nv = x.shape
@@ -729,11 +840,31 @@ class Corex:
             warnings.warn(
                 f"n_hidden={self.m} exceeds n_variables={self.nv}; "
                 f"surplus factors will converge to zero TC")
-        strategy = self.config.pick_strategy(self.n_samples, self.nv)
-        cfg = resolve_config(self.config, self.nv, self._device,
-                             n_samples=self.n_samples)
+        strategy = pick_fit_strategy(self.config, self.n_samples, self.nv,
+                                     plan)
+        if resolve:
+            cfg = resolve_config(self.config, self.nv, self._device,
+                                 n_samples=self.n_samples)
+        else:
+            # the optimizer policy depends on the data shapes only:
+            # resolved here, where n is still known
+            cfg = resolve_optimizer(self.config, self.nv, self.n_samples)
         self.resolved_optimizer_ = cfg.optimizer
         pre = self.pre_config
+        if mesh is not None:
+            # raw_x=True: the rows of the RAW X are split per x_spec for
+            # every strategy, so the sample-axis check applies to gram too
+            S.validate_plan_shapes(plan, strategy, mesh, self.n_samples,
+                                   self.nv, self.m, raw_x=True)
+            axes = S.sample_axes(mesh, plan)
+            xp, self.theta = P.fit_preprocess(
+                S.shard_rows(x, axes, self._device, self._dt),
+                pre.gaussianize, pre.missing_values, axes)
+            if axes:
+                xp = M.ShardedSamples(local=xp, n_total=self.n_samples,
+                                      axes=axes)
+            return prepare_operand(xp, strategy, cfg.matmul_dtype), cfg, \
+                strategy
         host = self._host_preprocess(x)
         if host is not None:
             xp, self.theta = host
@@ -761,7 +892,7 @@ class Corex:
             if tuple(pre.shape) == (self.m, self.nv):
                 return pre
         if self.config.init == "spectral" and data is not None:
-            return _spectral_init(data, self._omega(self.seed), strategy,
+            return _spectral_init(data, self._omega(self._fit_seed), strategy,
                                   self.config.matmul_dtype)
         return self._init_ws(self.nv)
 
@@ -803,10 +934,10 @@ class Corex:
         r) (seeded) or from the device generator seeded with base + r
         (unseeded), so lane 0 of a seeded sweep is the plain spectral fit's
         W0 and preset='throughput' composes with restarts."""
-        base = R.seed_base(self.seed)
+        base = R.seed_base(self._fit_seed)
         outs = []
         for r in range(restarts):
-            if self.seed is None:
+            if self._fit_seed is None:
                 gen = torch.Generator(device=self._device).manual_seed(
                     base + r)
                 omega = torch.randn((self.nv, self.m), generator=gen,
@@ -817,40 +948,61 @@ class Corex:
                                        self.config.matmul_dtype))
         return torch.stack(outs)
 
-    def _fit_restart_sweep(self, data, cfg, strategy, restarts):
+    def _fit_restart_sweep(self, data, cfg, strategy, restarts,
+                           mesh=None, data_axis=None, serving_plan=None):
         """n_restarts > 1: the lanes run as one solve and the best final
         TC wins (`best_restart_` records the lane). Lane r starts from
         RandomState(seed + r), so lane 0 is the plain Corex(seed=seed) fit
         and the sweep is reproducible; seed=None draws a fresh base per
-        call (`parallel.restarts.init_restarts`)."""
+        call (`parallel.restarts.init_restarts`).
+
+        With `mesh` the lanes split over its RESTART_AXIS (and the sample
+        rows over `data_axis` when given: the combined layout;
+        `resolve_restart_mesh_layout` decided both). The runner pads the
+        batch to the axis size with copies of the last init and drops
+        them, so the winner is the single-device sweep's. cfg arrives
+        unresolved (use_pallas='auto') and is resolved against the mesh."""
         check_restart_sweep_supported(cfg, strategy)
-        run = R.restart_batch_runner(None)
+        run = R.restart_batch_runner(mesh, RESTART_AXIS, data_axis)
         with R.lane_oom_guidance(restarts, self.m, self.nv,
                                  torch.empty((), dtype=self._dt)
                                  .element_size()):
             if cfg.init == "spectral":
                 w0 = self._spectral_restart_inits(data, strategy, restarts)
             else:
-                w0 = R.init_restarts(restarts, self.m, self.nv, self.seed,
-                                     self._dt, self._device)
+                w0 = R.init_restarts(restarts, self.m, self.nv,
+                                     self._fit_seed, self._dt, self._device)
             ws_b, mom_b, diag_b = run(data, w0, cfg, strategy,
                                       self.n_samples)
             self.ws, self.moments, self.diagnostics, best = \
                 R.best_restart(ws_b, mom_b, diag_b)
         self.best_restart_ = best
+        # combined layout: the caller's sample plan is a valid serving
+        # layout on this mesh; a restart-only sweep records None (the
+        # 'restarts' axis is a fit-time concept)
+        self._serving_plan = serving_plan
         if self.verbose:
             self._print_verbose()
         return self
 
     def fit(self, x, y=None, init_ws=None, mesh=None, sharding_plan=None):
         """Fit the model. `y` is ignored (unsupervised; accepted for
-        sklearn Pipelines). `mesh`/`sharding_plan` belong to the JAX
-        package's sharded fit and raise NotImplementedError here.
+        sklearn Pipelines). `mesh` (a torch.distributed DeviceMesh; see
+        `parallel.sharding` for the model of execution) runs the same
+        annealed fit with the sample rows split over the mesh's ranks per
+        `sharding_plan` (a `ShardingPlan`, default: rows over `data`);
+        every rank makes this call with the same arguments and ends with
+        the same state, bit for bit. Plans with shard_vars / shard_factors
+        raise NotImplementedError (ROADMAP item 17b).
 
         With `n_restarts=k > 1` the fit runs k seeded lanes as one solve
         and keeps the best final TC (`_fit_restart_sweep`); init='spectral'
-        sweeps draw one Ω per lane. A warm start or stage_subsample < 1
-        with restarts raises by name."""
+        sweeps draw one Ω per lane. Under `mesh=` the lanes split over the
+        mesh's 'restarts' axis, and the sample rows over its 'data' axis
+        too when the plan shards samples
+        (`resolve_restart_mesh_layout`). A warm start or stage_subsample
+        < 1 with restarts, var/factor/slice plans with restarts and a
+        mesh without a 'restarts' axis raise by name."""
         ysh = getattr(y, "shape", None)
         xsh = getattr(x, "shape", None)
         if (ysh is not None and len(ysh) == 2 and init_ws is None
@@ -863,16 +1015,66 @@ class Corex:
                 f"fit(x, init_ws=...); y is the ignored sklearn target")
         del y
         restarts = self._validated_restarts(init_ws)
-        _no_mesh("fit", mesh, sharding_plan)
         check_ported(self.config)
-        data, cfg, strategy = self._prepare_fit(x)
+        try:
+            return self._fit(x, init_ws, mesh, sharding_plan, restarts)
+        finally:
+            self._mesh_seed = None
+
+    def _fit(self, x, init_ws, mesh, sharding_plan, restarts):
+        plan = None
+        if mesh is not None:
+            plan = sharding_plan or ShardingPlan()
+            S.reject_unported_plan(plan, "fit")
+            S.check_mesh(mesh, self._device)
+            self._mesh_seed = S.shared_seed(self.seed, mesh, self._device)
+            if restarts > 1:
+                strategy_plan, data_axis = resolve_restart_mesh_layout(
+                    mesh, plan)
+                xsh = getattr(x, "shape", None)
+                if self.config.stage_subsample < 1.0 and xsh is not None \
+                        and len(xsh) == 2:
+                    # raise before the rows move; _fit_restart_sweep
+                    # checks again on the validated shapes
+                    check_restart_sweep_supported(
+                        self.config,
+                        pick_fit_strategy(self.config, xsh[0], xsh[1],
+                                          strategy_plan))
+                data, cfg, strategy = self._prepare_fit(
+                    x, resolve=False, plan=strategy_plan,
+                    mesh=mesh if strategy_plan is not None else None)
+                if strategy != "samples":
+                    # an explicit moment_strategy='gram' under a sample
+                    # plan runs replicated (pick_fit_strategy warned)
+                    data_axis = None
+                return self._fit_restart_sweep(
+                    data, cfg, strategy, restarts, mesh=mesh,
+                    data_axis=data_axis,
+                    serving_plan=plan if data_axis is not None else None)
+        data, cfg, strategy = self._prepare_fit(
+            x, resolve=mesh is None, plan=plan, mesh=mesh)
         if restarts > 1:
             return self._fit_restart_sweep(data, cfg, strategy, restarts)
         w0 = self._resolve_w0(init_ws, data=data, strategy=strategy)
-        fit = _fit_staged_subsample if stage_subsample_active(
-            cfg, strategy) else _fit_program
-        self.ws, self.moments, self.diagnostics = fit(data, w0, cfg,
-                                                      strategy)
+        if mesh is not None:
+            if stage_subsample_active(cfg, strategy):
+                raise ValueError(
+                    "stage_subsample < 1 is not supported under "
+                    "fit(mesh=...) yet: a stride slice of the sharded "
+                    "sample axis would leave the ranks with unequal row "
+                    "blocks mid-fit. Run the mesh fit with "
+                    "stage_subsample=1, or fit single-device.")
+            # check_overflow=False: _prepare_fit guarded this operand
+            self.ws, self.moments, self.diagnostics = S.fit_sharded(
+                data, w0, cfg, mesh, plan, strategy,
+                n_samples=self.n_samples, check_overflow=False)
+            self._serving_plan = plan  # mesh serving calls default to it
+        else:
+            fit = _fit_staged_subsample if stage_subsample_active(
+                cfg, strategy) else _fit_program
+            self.ws, self.moments, self.diagnostics = fit(data, w0, cfg,
+                                                          strategy)
+            self._serving_plan = None  # state is single-device again
         self.best_restart_ = 0
         if self.verbose:
             self._print_verbose()
@@ -901,7 +1103,42 @@ class Corex:
         with y positionally; it is ignored)."""
         del y
         self.fit(x, mesh=mesh, sharding_plan=sharding_plan)
-        return self.transform(x)
+        if mesh is not None and sharding_plan is None \
+                and self._serving_plan is None:
+            # a restart-only sweep: the mesh carries no serving axes and
+            # the winning lane's state is whole on every rank, so each
+            # transforms on its own. An explicit plan is honored (and
+            # fails its validation by name).
+            return self.transform(x)
+        return self.transform(x, mesh=mesh, sharding_plan=sharding_plan)
+
+    def _serving_rows(self, a, mesh, sharding_plan, what):
+        """Shared first step of the row-wise serving methods. Without a
+        mesh: `a` on the model device, no axes. Under a mesh: the serving
+        layout resolved (`sharding_plan`, else the plan of the last mesh
+        fit or serving call, else rows over `data`), validated by name,
+        remembered, and this rank's row block of `a` on the device.
+        Returns (rows, axes): the fitted state stays replicated under a
+        plan over sample axes, so there is nothing else to place."""
+        if mesh is None:
+            return self._as_tensor(a), ()
+        self._serving_replicated(mesh, sharding_plan, what, a.shape[0])
+        axes = S.sample_axes(mesh, self._serving_plan)
+        return S.shard_rows(a, axes, self._device, self._dt), axes
+
+    def _serving_replicated(self, mesh, sharding_plan, what, n_rows=None):
+        """Resolve, validate and remember the serving plan of a mesh call.
+        It is all the covariance methods need: a plan over sample axes
+        shards none of their operands, so every rank computes the whole
+        result."""
+        if mesh is None:
+            return
+        plan = sharding_plan or self._serving_plan or ShardingPlan()
+        S.reject_unported_plan(plan, what)
+        S.check_mesh(mesh, self._device)
+        S.validate_plan_shapes(plan, "samples", mesh, n_rows, self.nv,
+                               self.ws.shape[0], raw_x=True)
+        self._serving_plan = plan
 
     def _check_fitted(self):
         if self.ws is None or self.moments is None:
@@ -912,20 +1149,28 @@ class Corex:
         """Project to factors: Y = X_preproc·Wᵀ. With details=True returns
         (Y, moments dict) with the moments of the given data under the
         fitted weights (the reference's keys). Under
-        set_output(transform='pandas') the plain return is a DataFrame."""
-        _no_mesh("transform", mesh, sharding_plan)
+        set_output(transform='pandas') the plain return is a DataFrame.
+
+        `mesh` (+ optional `sharding_plan`, default: the last mesh fit's,
+        else rows over `data`) splits the rows of `x` over the plan's
+        sample axes: each rank projects its block and the (n, m) result
+        is gathered, whole, onto every rank."""
         self._check_fitted()
         x_orig = x
-        x = self._check_width(x)
+        x = self._check_width(x, move=False)
+        n = x.shape[0]
+        x, axes = self._serving_rows(x, mesh, sharding_plan, "transform")
         pre = self.pre_config
         cfg = self.config
         with M.full_f32_matmul():
             xp = P.preprocess(x, pre.gaussianize, self.theta,
-                              pre.missing_values)
-            y = M._mm(xp, self.ws.T)
+                              pre.missing_values, axes)
+            y = all_gather_rows(M._mm(xp, self.ws.T), axes)
             if not details:
                 return self._maybe_wrap_output(y, x_orig)
             zero = torch.zeros((), dtype=self.ws.dtype, device=x.device)
+            if axes:
+                xp = M.ShardedSamples(local=xp, n_total=n, axes=axes)
             c_xy = M.cxy_samples(xp, self.ws, zero)
             mom = M.moments_from_cxy(self.ws, c_xy, cfg.y_scale,
                                      cfg.rho_clip)
@@ -935,8 +1180,9 @@ class Corex:
         """Reconstruct variables from factors: the posterior-mean
         reconstruction, then the preprocessing inverted. The argument is
         the FACTOR matrix (n, m) from `transform` (the reference's
-        semantics); `inverse_transform` is the sklearn spelling."""
-        _no_mesh("predict", mesh, sharding_plan)
+        semantics); `inverse_transform` is the sklearn spelling. Under
+        `mesh` the rows of `y` split over the plan's sample axes and the
+        (n, p) reconstruction is gathered onto every rank."""
         self._check_fitted()
         y = self._coerce_2d(y, what="y")
         # the FITTED factor count: set_params(n_hidden=...) after fit must
@@ -949,13 +1195,15 @@ class Corex:
         if isinstance(y, np.ndarray) and not np.isfinite(y).all():
             raise ValueError(
                 "factor input to predict contains NaN/inf")
-        y = self._as_tensor(y)
+        y, axes = self._serving_rows(y, mesh, sharding_plan, "predict")
         mom = self.moments
         with M.full_f32_matmul():
             if self.config.discourage_overlap:
-                return _predict_ns(y, mom.rhoinvrho, mom.si, mom.z2,
-                                   self.theta)
-            return _predict_overlap(y, mom.cy, mom.c_xy, self.theta)
+                out = _predict_ns(y, mom.rhoinvrho, mom.si, mom.z2,
+                                  self.theta)
+            else:
+                out = _predict_overlap(y, mom.cy, mom.c_xy, self.theta)
+            return all_gather_rows(out, axes)
 
     def inverse_transform(self, y, mesh=None, sharding_plan=None):
         """sklearn spelling of `predict`: factors (n, m) back to the
@@ -978,9 +1226,10 @@ class Corex:
         covariance (the sklearn scoring convention: higher is better; `y`
         is ignored). Woodbury on the diagonal-plus-low-rank Σ̂: O(n·p·m),
         the p x p never materializes. Only the affine gaussianize modes
-        ('none', 'standard') carry a density back to the data's scale."""
+        ('none', 'standard') carry a density back to the data's scale.
+        Under `mesh` each rank scores its row block and the mean is over
+        all rows."""
         del y
-        _no_mesh("score", mesh, sharding_plan)
         self._check_fitted()
         pre = self.pre_config
         if pre.gaussianize not in ("none", "standard"):
@@ -988,11 +1237,12 @@ class Corex:
                 "score() requires gaussianize='none' or 'standard': the "
                 "'empirical'/'outliers' transforms are non-affine, so a "
                 "density on the original scale is not defined by Σ̂ alone")
-        x = self._check_width(x)
+        x = self._check_width(x, move=False)
+        x, axes = self._serving_rows(x, mesh, sharding_plan, "score")
         with M.full_f32_matmul():
             xp = P.preprocess(x, pre.gaussianize, self.theta,
-                              pre.missing_values)
-            return _gaussian_ll(xp, self._factor_z(), self.theta.std)
+                              pre.missing_values, axes)
+            return _gaussian_ll(xp, self._factor_z(), self.theta.std, axes)
 
     def _covariance_apply(self, v):
         mom = self.moments
@@ -1005,8 +1255,8 @@ class Corex:
     def covariance_matvec(self, v, mesh=None, sharding_plan=None):
         """Σ̂·v through skinny products (the p x p never forms); equal to
         `get_covariance() @ v` to rounding on both solver paths."""
-        _no_mesh("covariance_matvec", mesh, sharding_plan)
         self._check_fitted()
+        self._serving_replicated(mesh, sharding_plan, "covariance_matvec")
         if not hasattr(v, "ndim"):
             v = np.asarray(v)
         if v.ndim != 1 or v.shape[0] != self.nv:
@@ -1019,8 +1269,8 @@ class Corex:
     def covariance_matmat(self, v, mesh=None, sharding_plan=None):
         """Σ̂·V for a (p, k) block of vectors in one pass of skinny
         products."""
-        _no_mesh("covariance_matmat", mesh, sharding_plan)
         self._check_fitted()
+        self._serving_replicated(mesh, sharding_plan, "covariance_matmat")
         if not hasattr(v, "ndim"):
             v = np.asarray(v)
         if v.ndim != 2 or v.shape[0] != self.nv:
@@ -1043,8 +1293,8 @@ class Corex:
         in order over [0, p), without forming the p x p matrix; `rows` has
         shape (min(block_size, p - start), p). Every block is computed at
         one size (the last as the tail of a full block)."""
-        _no_mesh("covariance_blocks", mesh, sharding_plan)
         self._check_fitted()
+        self._serving_replicated(mesh, sharding_plan, "covariance_blocks")
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         p = self.nv
@@ -1196,8 +1446,9 @@ class Corex:
         model device and re-solves from the accumulated correlation,
         warm-started from the current weights, so the estimator is usable
         after every call. `fit` resets the accumulation; `partial_fit`
-        continues it. `y` is ignored; `mesh`/`sharding_plan` belong to the
-        JAX package's sharded accumulation and raise NotImplementedError.
+        continues it. `y` is ignored; `mesh`/`sharding_plan` (the sharded
+        accumulation) are not ported yet and raise NotImplementedError
+        (ROADMAP item 17e).
 
         Equivalent to `fit(concat(batches))` with gaussianize='standard'
         up to the W init (identical accumulated moments; the warm start

@@ -1,6 +1,6 @@
 """Model selection: `pick_n_hidden`, in PyTorch.
 
-Port of `linearcorex_tpu/models/selection.py` for one device: fit Corex
+Port of `linearcorex_tpu/models/selection.py`: fit Corex
 for n_hidden = 1 .. max_n_hidden with `repeat` seeded restarts each and
 keep the smallest n_hidden past which TC (or the held-out likelihood)
 stops improving.
@@ -16,9 +16,11 @@ dedicated n_hidden=1 fit skips annealing). padded_sweep=False runs the
 reference's sequential per-candidate loop, each candidate's restarts as
 lanes, with its early stop under criterion='tc'.
 
-A mesh (the sharded sweep) is not ported yet (ROADMAP.md Queue 1, item
-17); `warmup_sweep` compiles the JAX package's XLA program ahead of time
-and has no counterpart in the eager port.
+With `mesh=` the (candidate, restart) lanes split over the mesh's
+`restart_axis`, and with `data_axis=` the sample rows over that axis too
+(`parallel.restarts.fit_restarts_sharded`); every rank makes the same
+call and gets the same answer. `warmup_sweep` compiles the JAX package's
+XLA program ahead of time and has no counterpart in the eager port.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ import torch
 from linearcorex_tpu_torch.config import CorexConfig
 from linearcorex_tpu_torch.models.corex import (_factor_z_ns,
                                                 _factor_z_overlap,
-                                                _gaussian_ll, _not_ported,
+                                                _gaussian_ll,
+                                                pick_fit_strategy,
                                                 prepare_operand,
                                                 resolve_device, torch_dtype)
 from linearcorex_tpu_torch.ops import moments as M
@@ -48,9 +51,12 @@ _DATA_AXIS_NEEDS_MESH = (
 
 
 def _sweep_cfg_and_strategy(n: int, p: int, max_n_hidden: int, dtype: str,
-                            corex_kwargs: dict):
-    """(sweep CorexConfig, moment strategy) of the padded sweep.
-    `corex_kwargs` must already exclude the preprocessing kwargs
+                            data_axis: Optional[str], corex_kwargs: dict):
+    """(sweep CorexConfig, moment strategy) of the padded sweep. The
+    strategy choice is `models.corex.pick_fit_strategy`'s, with
+    `data_axis` expressed as the sample-sharding plan it is; an explicit
+    'gram' with a data axis raises (a Gram operand has no sample axis to
+    shard). `corex_kwargs` must already exclude the preprocessing kwargs
     (gaussianize, missing_values) and record_history (sweeps force it
     off)."""
     if "n_restarts" in corex_kwargs:
@@ -70,9 +76,19 @@ def _sweep_cfg_and_strategy(n: int, p: int, max_n_hidden: int, dtype: str,
             "kwargs, or run Corex(init='spectral', n_restarts=k) at a "
             "fixed n_hidden (spectral restart lanes are supported "
             "there).")
+    plan = None
+    if data_axis is not None:
+        if probe.moment_strategy == "gram":
+            raise ValueError(
+                "data_axis shards the SAMPLE rows of X; a Gram operand "
+                "carries none — the combined restarts x data layout is "
+                "samples-strategy only (drop data_axis, or use "
+                "moment_strategy='auto'/'samples')")
+        from linearcorex_tpu_torch.parallel.sharding import ShardingPlan
+        plan = ShardingPlan(shard_samples=True)
     cfg = CorexConfig(n_hidden=max_n_hidden, dtype=dtype,
                       record_history=False, **corex_kwargs)
-    return cfg, probe.pick_strategy(n, p)
+    return cfg, pick_fit_strategy(probe, n, p, plan)
 
 
 def _padded_inits(max_n: int, repeat: int, p: int, seed: Optional[int],
@@ -180,8 +196,21 @@ def pick_n_hidden(data, repeat: int = 1, max_n_hidden: Optional[int] = None,
     Extra kwargs flow into `CorexConfig` (max_iter, tol, anneal, ...).
     padded_sweep=True runs the whole (candidate, restart) grid as lanes of
     one solve; False runs the sequential per-candidate loop. `device`
-    names where the sweep runs, as `Corex(device=...)` does; a mesh
-    raises NotImplementedError."""
+    names where the sweep runs, as `Corex(device=...)` does.
+
+    `mesh` (a DeviceMesh with a `restart_axis` axis) splits the
+    (candidate, restart) lanes over that axis: each group of ranks runs
+    its share against its own copy of the data. `data_axis` (a second
+    mesh axis) also splits the sample rows of every Σ-application over
+    that axis (samples strategy only; the summed cross-moments ride the
+    data axis, nothing rides the restart axis before the final gather).
+    That divides the solve's work per rank, not its memory: every rank
+    still moves the whole X to its device and preprocesses it once, as
+    without a mesh, and the solver reads its row block of the result
+    (`Corex.fit(mesh=)` is the entry point that shards the raw rows
+    before it preprocesses them). Every rank makes the same
+    call and returns the same (best_n, scores); an unseeded sweep draws
+    its seed on the mesh's first rank."""
     if repeat < 1:
         raise ValueError(f"repeat must be >= 1, got {repeat}")
     if max_n_hidden is not None and max_n_hidden < 1:
@@ -191,10 +220,12 @@ def pick_n_hidden(data, repeat: int = 1, max_n_hidden: Optional[int] = None,
                          f"(expected 'tc' or 'heldout')")
     if data_axis is not None and mesh is None:
         raise ValueError(_DATA_AXIS_NEEDS_MESH)
-    if mesh is not None:
-        _not_ported("pick_n_hidden(mesh=...)", "item 17 (sharding)")
-    del restart_axis
     dev = resolve_device(device)
+    if mesh is not None:
+        from linearcorex_tpu_torch.parallel.sharding import (check_mesh,
+                                                             shared_seed)
+        check_mesh(mesh, dev)
+        seed = shared_seed(seed, mesh, dev)   # unseeded: one draw for all
     dt = torch_dtype(dtype)
     n, p = np.shape(data)
     if max_n_hidden is None:
@@ -208,7 +239,7 @@ def pick_n_hidden(data, repeat: int = 1, max_n_hidden: Optional[int] = None,
         n_train, n_val = _heldout_split_sizes(n, val_fraction, gaussianize)
     # argument errors before the split moves any data
     cfg, strategy = _sweep_cfg_and_strategy(n_train, p, max_n_hidden,
-                                            dtype, corex_kwargs)
+                                            dtype, data_axis, corex_kwargs)
     x = data if isinstance(data, torch.Tensor) else torch.as_tensor(
         np.asarray(data))
     x = x.to(dtype=dt, device=dev)
@@ -228,7 +259,7 @@ def pick_n_hidden(data, repeat: int = 1, max_n_hidden: Optional[int] = None,
         xv = P.preprocess(xv, gaussianize, theta, missing_values)
     overlap = not cfg.discourage_overlap
     label = "TC" if criterion == "tc" else "held-out loglik"
-    run_batch = restart_batch_runner(None)
+    run_batch = restart_batch_runner(mesh, restart_axis, data_axis)
 
     def lane_scores(mom_b):
         if criterion == "heldout":

@@ -33,6 +33,14 @@ to all of them in one product, on their operands laid side by side
 Per-column int8 quantization gives a lane's columns the scales of a
 single fit, so its int8 products are bitwise those of the single fit. A
 2-D `ws` runs exactly the single-fit operations.
+
+A sample-sharded fit (`parallel.sharding`) hands the same functions a
+`ShardedSamples` operand: this rank's row block of X with the total row
+count and the mesh axes its rows are split over. Every Σ-application then
+computes its partial product from the local rows and sums it over those
+axes (`parallel.collectives.all_reduce`), dividing by the TOTAL row
+count. Everything after that sum is replicated arithmetic on every rank,
+so the chain kernel runs unchanged on each rank's full C_xy.
 """
 
 from __future__ import annotations
@@ -46,6 +54,8 @@ import numpy as np
 import torch
 
 from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+from linearcorex_tpu_torch.parallel.collectives import (all_reduce,
+                                                        shard_index)
 
 _F32 = torch.float32
 
@@ -114,6 +124,41 @@ class QuantizedData(NamedTuple):
     scale: torch.Tensor   # () float32
 
 
+class ShardedSamples(NamedTuple):
+    """Sample-sharded X: this rank's row block (a tensor, its bf16 cast or
+    its `QuantizedData`), the row count of the whole X and the mesh axes
+    (`parallel.collectives.Axis`) the rows are split over, outermost
+    first. Sums over samples reduce over `axes`, innermost first."""
+
+    local: object         # torch.Tensor | QuantizedData, (n_total/d, p)
+    n_total: int
+    axes: tuple
+
+    @property
+    def reduce_axes(self):
+        """The axes in reduce order: innermost (`data`) first."""
+        return tuple(reversed(self.axes))
+
+
+def _unsharded(data):
+    """(local operand, total rows, reduce axes) of any samples operand; a
+    plain operand holds every row and reduces over nothing."""
+    if isinstance(data, ShardedSamples):
+        return data.local, data.n_total, data.reduce_axes
+    rows = data.q if isinstance(data, QuantizedData) else data
+    return data, rows.shape[0], ()
+
+
+def is_quantized(data) -> bool:
+    """Whether a fit operand carries the int8 mode (sharded or not)."""
+    return isinstance(_unsharded(data)[0], QuantizedData)
+
+
+def n_rows(data) -> int:
+    """Sample count of a samples operand (the whole X's, when sharded)."""
+    return _unsharded(data)[1]
+
+
 _INT32_MAX = float(2 ** 31 - 1)
 
 
@@ -150,55 +195,81 @@ def _int8_mm(a, b):
     return torch._int_mm(a, bt.T)[:m_, :n_]
 
 
-def _int8_abs_sum_bound(q) -> float:
+def _int8_abs_sum_bound(q, axes=()) -> float:
     """Guaranteed-safe int32 accumulation certificate: every contraction
     the int8 paths run (q·vq over axis 1, qᵀ·tq over axis 0, both against
     |operand| ≤ 127) is bounded in magnitude by 127 · max(row |q| sums,
     col |q| sums). If that is ≤ int32 max, no application vector can wrap.
-    The sums are exact (int64)."""
+    The sums are exact (int64). Rows split over `axes`: a column's sum
+    adds the ranks' sums, the largest row sum is the largest of any
+    rank's."""
     a = torch.abs(q).to(torch.int64)
-    return 127.0 * float(torch.maximum(torch.amax(torch.sum(a, dim=0)),
-                                       torch.amax(torch.sum(a, dim=1))))
+    cols = all_reduce(torch.sum(a, dim=0), axes)
+    rows = all_reduce(torch.amax(torch.sum(a, dim=1)), axes, op="max")
+    return 127.0 * float(torch.maximum(torch.amax(cols), rows))
 
 
-def _int8_wrap_probe(q, u) -> float:
+def _wrap32(r64):
+    """An int64 sum as a 32-bit accumulator would hold it."""
+    return ((r64 + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
+
+
+def _int8_wrap_probe(q, u, axes=(), row_start: int = 0) -> float:
     """Max relative disagreement between int32 and float32 accumulation of
     the same int8 operands over both contraction axes. A wrap shows as an
     O(1) relative error; float32 rounding is ~1e-6.
 
     Probe vectors: random columns and data-aligned ones (one power-
     iteration step, v = qᵀ·u), which model the solver's late-fit operands
-    (the columns of Wᵀ/AAᵀ align with the data's principal structure)."""
-    def one(a, b):
-        r32 = _int8_mm(a, b).to(_F32)
-        rf = torch.matmul(a.to(_F32), b.to(_F32))
-        return torch.amax(torch.abs(r32 - rf)) / torch.clamp(
-            torch.amax(torch.abs(rf)), min=1.0)
+    (the columns of Wᵀ/AAᵀ align with the data's principal structure).
+
+    With the rows split over `axes` (`q` the local block, `row_start` its
+    first row in the whole operand) the products are the whole operand's:
+    the row-wise one is local, the one contracted over samples sums the
+    ranks' partials, the int32 one as the 32-bit accumulator of a single
+    device would hold it."""
+    def err(r32, rf):
+        num = all_reduce(torch.amax(torch.abs(r32.to(_F32) - rf)), axes,
+                         op="max")
+        den = all_reduce(torch.amax(torch.abs(rf)), axes, op="max")
+        return num / torch.clamp(den, min=1.0)
 
     with full_f32_matmul():
         qf = q.to(_F32)
-        v = torch.cat([u[:q.shape[1]], qf.T @ u[:q.shape[0]]], dim=1)
+        rows = slice(row_start, row_start + q.shape[0])
+        v = torch.cat([u[:q.shape[1]], all_reduce(qf.T @ u[rows], axes)],
+                      dim=1)
         vq, _ = _quant_cols(v)
         t = qf @ vq.to(_F32)
-        tq, _ = _quant_cols(t)
-        return float(torch.maximum(one(q, vq), one(q.T, tq)))
+        tq, _ = _quant_cols(t, axes)
+        e_rows = err(_int8_mm(q, vq), torch.matmul(qf, vq.to(_F32)))
+        r32 = _int8_mm(q.T, tq)
+        if axes:
+            r32 = _wrap32(all_reduce(r32.to(torch.int64), axes))
+        rf = all_reduce(torch.matmul(qf.T, tq.to(_F32)), axes)
+        e_cols = torch.amax(torch.abs(r32.to(_F32) - rf)) / torch.clamp(
+            torch.amax(torch.abs(rf)), min=1.0)
+        return float(torch.maximum(e_rows, e_cols))
 
 
-def _check_int8_wrap(qd: QuantizedData) -> None:
+def _check_int8_wrap(qd) -> None:
     """Guard against a silent int32 accumulator wrap (see
     `QuantizedData`). The certificate first; only when it fails, a probe
     of the actual int8 products with seeded random and data-aligned
     vectors: raise on a demonstrated wrap, warn on a merely possible
-    one."""
+    one. A `ShardedSamples` operand is guarded as the whole X it is a
+    block of: every rank reaches the same verdict."""
+    qd, n_total, axes = _unsharded(qd)
     q = qd.q
     if q.ndim != 2:
         return
-    bound = _int8_abs_sum_bound(q)
+    bound = _int8_abs_sum_bound(q, axes)
     if bound <= _INT32_MAX:
         return
     u = torch.as_tensor(np.random.RandomState(0).normal(
-        size=(max(q.shape), 4)), dtype=_F32, device=q.device)
-    err = _int8_wrap_probe(q, u)
+        size=(max(n_total, q.shape[1]), 4)), dtype=_F32, device=q.device)
+    row_start = shard_index(axes[::-1]) * q.shape[0]
+    err = _int8_wrap_probe(q, u, axes, row_start)
     if err > 0.1:
         raise ValueError(
             f"int8 accumulation overflow: the quantized operand wraps the "
@@ -227,20 +298,27 @@ def _div127(a):
     return a / torch.full((), 127.0, dtype=a.dtype, device=a.device)
 
 
-def _quantize(x):
-    """Abs-max scale, then round/clip/cast: (q int8, scale () float32)."""
-    s = torch.clamp(_div127(torch.amax(torch.abs(x)).to(_F32)), min=1e-30)
+def _quantize(x, axes=()):
+    """Abs-max scale, then round/clip/cast: (q int8, scale () float32).
+    Rows split over `axes`: the scale is the whole tensor's."""
+    amax = all_reduce(torch.amax(torch.abs(x)).to(_F32), axes, op="max")
+    s = torch.clamp(_div127(amax), min=1e-30)
     q = torch.clamp(torch.round(x.to(_F32) / s), -127, 127).to(torch.int8)
     return q, s
 
 
-def quantize_samples(x, check_overflow: bool = True) -> QuantizedData:
+def quantize_samples(x, check_overflow: bool = True):
     """Quantize a standardized samples matrix (or a correlation-scaled
     Gram matrix, see `quantize_gram`) to int8 with one global scale.
     check_overflow=True (default) runs the int32 wrap guard
-    (`_check_int8_wrap`)."""
-    q, s = _quantize(x)
-    qd = QuantizedData(q=q, scale=s)
+    (`_check_int8_wrap`). A `ShardedSamples` operand comes back sharded
+    alike, quantized with the scale of the whole X."""
+    if isinstance(x, ShardedSamples):
+        q, s = _quantize(x.local, x.reduce_axes)
+        qd = x._replace(local=QuantizedData(q=q, scale=s))
+    else:
+        q, s = _quantize(x)
+        qd = QuantizedData(q=q, scale=s)
     if check_overflow:
         _check_int8_wrap(qd)
     return qd
@@ -252,25 +330,34 @@ def quantize_gram(g, check_overflow: bool = True) -> QuantizedData:
     return quantize_samples(g, check_overflow=check_overflow)
 
 
-def _quant_cols(v):
+def _quant_cols(v, axes=()):
     """Per-column int8 quantization of an application operand (the
-    columns of Wᵀ/AAᵀ span very different magnitudes, unlike X's)."""
-    s = torch.clamp(_div127(torch.amax(torch.abs(v), dim=0)), min=1e-30)
+    columns of Wᵀ/AAᵀ span very different magnitudes, unlike X's). Rows
+    split over `axes`: a column's scale is from its maximum over all
+    rows."""
+    amax = all_reduce(torch.amax(torch.abs(v), dim=0), axes, op="max")
+    s = torch.clamp(_div127(amax), min=1e-30)
     q = torch.clamp(torch.round(v / s), -127, 127).to(torch.int8)
     return q, s
 
 
-def _apply_sigma_int8(qd: QuantizedData, v):
+def _apply_sigma_int8(qd, v):
     """v (p, k) float32 ↦ Σ_emp·v through two int8 products (int32
     accumulation), samples operand. Scales factor out of the
     contractions: X ≈ sx·q and v ≈ q_v·diag(s_v) give
     X·v ≈ sx·(q·q_v)·diag(s_v); the intermediate is re-quantized per
-    column for the second product."""
+    column for the second product.
+
+    Sample-sharded, the result is bitwise the single-device one: the
+    first product's rows are local, the column maxima of the intermediate
+    are taken over all ranks, and the second product's int32 partials add
+    exactly."""
+    qd, n, axes = _unsharded(qd)
     vq, sv = _quant_cols(v)
     t = _int8_mm(qd.q, vq).to(_F32) * (qd.scale * sv)[None, :]
-    tq, st = _quant_cols(t)
-    r = _int8_mm(qd.q.T, tq)
-    return r.to(_F32) * (qd.scale * st)[None, :] / qd.q.shape[0]
+    tq, st = _quant_cols(t, axes)
+    r = all_reduce(_int8_mm(qd.q.T, tq), axes)
+    return r.to(_F32) * (qd.scale * st)[None, :] / n
 
 
 def _apply_gram_int8(qd: QuantizedData, v):
@@ -279,7 +366,7 @@ def _apply_gram_int8(qd: QuantizedData, v):
     return _int8_mm(qd.q, vq).to(_F32) * (qd.scale * sv)[None, :]
 
 
-def _apply_int8(qd: QuantizedData, v, gram: bool):
+def _apply_int8(qd, v, gram: bool):
     return _apply_gram_int8(qd, v) if gram else _apply_sigma_int8(qd, v)
 
 
@@ -359,9 +446,10 @@ def cxy_samples(x, ws, eps):
     """C_xy = Xᵀ(X·Wᵀ)/n, annealed; the p x p covariance is never
     formed. A QuantizedData operand is dequantized here (the one-time
     exact path: final moments)."""
+    x, n, axes = _unsharded(x)
     x = _dequantized(x)
-    n = x.shape[0]
-    c_xy = _lanes(lambda v: _mm(x.T, _mm(x, v)) / n, ws.mT)      # p x m
+    c_xy = _lanes(lambda v: all_reduce(_mm(x.T, _mm(x, v)), axes) / n,
+                  ws.mT)                                         # p x m
     return _anneal(c_xy, ws.mT, eps)
 
 
@@ -373,10 +461,11 @@ def cxy_gram(gram, ws, eps):
 
 
 def compute_gram(x):
-    """Σ = XᵀX/n, once per fit, at full float32 (never TF32)."""
-    n = x.shape[0]
+    """Σ = XᵀX/n, once per fit, at full float32 (never TF32). From a
+    `ShardedSamples` X: the ranks' products summed, Σ replicated."""
+    x, n, axes = _unsharded(x)
     with full_f32_matmul():
-        return _mm(x.T, x) / n
+        return all_reduce(_mm(x.T, x), axes) / n
 
 
 def _cy_ry(ws, c_xy, y_scale):
@@ -474,17 +563,17 @@ def _cxy_eff(data, ws, eps, bf16, gram):
 def _apply_sigma_t(data, bf16, gram, dtype):
     """v (p, k) ↦ Σ_emp·v for the operand mode (un-annealed; callers
     blend eps themselves and lay lanes side by side with `_lanes`)."""
-    if isinstance(data, QuantizedData):
+    if is_quantized(data):
         return lambda v: _apply_int8(data, v, gram).to(dtype)
     if gram:
         if bf16:
             return lambda v: _mm_bf16(data, v, dtype)
         return lambda v: _mm(data, v)
-    n = data.shape[0]
+    x, n, axes = _unsharded(data)
     if bf16:
-        return lambda v: _mm_bf16(data.T, _mm_bf16(data, v, dtype),
-                                  dtype) / n
-    return lambda v: _mm(data.T, _mm(data, v)) / n
+        return lambda v: all_reduce(
+            _mm_bf16(x.T, _mm_bf16(x, v, dtype), dtype), axes) / n
+    return lambda v: all_reduce(_mm(x.T, _mm(x, v)), axes) / n
 
 
 def _run_chain(ws, c_xy, y_scale, rho_clip):
@@ -559,17 +648,17 @@ def _ns_obj_grad(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel,
 def _apply_sigma_rows(data, bf16, gram, dtype):
     """a (r, p) ↦ a·Σ_emp for the operand mode: the row-layout form of
     `_apply_sigma_t` (the gradient path's AA·Σ)."""
-    if isinstance(data, QuantizedData):
+    if is_quantized(data):
         return lambda a: _apply_int8(data, a.T, gram).T.to(dtype)
     if gram:
         if bf16:
             return lambda a: _mm_bf16(a, data, dtype)
         return lambda a: _mm(a, data)
-    n = data.shape[0]
+    x, n, axes = _unsharded(data)
     if bf16:
-        return lambda a: _mm_bf16(_mm_bf16(a, data.T, dtype), data,
-                                  dtype) / n
-    return lambda a: _mm(_mm(a, data.T), data) / n
+        return lambda a: all_reduce(
+            _mm_bf16(_mm_bf16(a, x.T, dtype), x, dtype), axes) / n
+    return lambda a: all_reduce(_mm(_mm(a, x.T), x), axes) / n
 
 
 # ---------------------------------------------------------------------------
@@ -686,11 +775,10 @@ def overlap_obj_grad_samples(ws, x, eps, y_scale):
 
     ∇F = −(M Bᵀ V)·Σ_eff + (M Bᵀ V B M)·Bᵀ + M·Bᵀ with M = C_y⁻¹,
     V = diag(1/v) (derivation in the JAX package's oracle)."""
-    n = x.shape[0]
-    b = _anneal(_lanes(lambda v: _mm(x.T, _mm(x, v)) / n, ws.mT), ws.mT,
-                eps)
+    b = _anneal(_lanes(_apply_sigma_t(x, False, False, ws.dtype), ws.mT),
+                ws.mT, eps)
     return _overlap_from_b(ws, b, eps, y_scale,
-                           lambda g: _mm(_mm(g, x.T), x) / n)
+                           _apply_sigma_rows(x, False, False, ws.dtype))
 
 
 def overlap_obj_grad_gram(ws, gram, eps, y_scale):

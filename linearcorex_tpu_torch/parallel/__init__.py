@@ -1,1 +1,10 @@
-"""Restart sweeps of the PyTorch port: k fits run as lanes of one solve."""
+"""Parallel execution of the PyTorch port.
+
+- `restarts`: k fits run as lanes of one solve, on one device or split
+  over a mesh's `restarts` axis.
+- `sharding`: sample-sharded fits over a `torch.distributed` device mesh
+  (plans, meshes, `fit_sharded`, `fit_shard_map`); its docstring states
+  the model of execution.
+- `collectives`: every cross-rank sum, maximum and gather, counted.
+- `launch`: start a local world of ranks that run one function.
+"""

@@ -1,15 +1,21 @@
 """Restart sweeps: k independent annealed fits run side by side as lanes.
 
-Port of `linearcorex_tpu/parallel/restarts.py` for one device. The JAX
-package runs a sweep as `jax.vmap` over the whole annealed fit. Here the
+Port of `linearcorex_tpu/parallel/restarts.py`. The JAX package runs a
+sweep as `jax.vmap` over the whole annealed fit. Here the
 lanes are a leading axis written out: `core.solver.fit_core` runs them
 in lockstep (a lane frozen once its own predicate is false), the moment
 functions apply the shared data operand to all lanes in one product, and
 the chain kernel takes every lane in one launch per pass
 (`ops.cuda_moments.ns_chain`).
 
-The sharded forms (`fit_restarts_sharded`, a mesh in
-`restart_batch_runner`) are not ported yet (ROADMAP.md Queue 1, item 17).
+Over a device mesh (`fit_restarts_sharded`, a mesh in
+`restart_batch_runner`) the lanes split over a `restarts` axis: each
+group of ranks runs its share of the lanes as one such solve, at its own
+pace and with no collective across the axis during the fit (groups run
+different iteration counts), and one `all_gather` over the axis at the
+end hands every rank all lanes. With `data_axis`, each group's sample
+rows split over that axis too and its (p, lanes·m) cross-moment is summed
+over `data` only (`parallel.sharding` states the model of execution).
 """
 
 from __future__ import annotations
@@ -22,10 +28,11 @@ import torch
 
 from linearcorex_tpu_torch.config import CorexConfig
 from linearcorex_tpu_torch.ops import moments as M
+from linearcorex_tpu_torch.parallel.collectives import all_gather_lanes
 
-__all__ = ["init_restarts", "fit_restarts", "best_restart",
-           "restart_batch_runner", "lane_oom_guidance",
-           "LaneOutOfMemoryError"]
+__all__ = ["init_restarts", "fit_restarts", "fit_restarts_sharded",
+           "best_restart", "restart_batch_runner", "padded_lanes",
+           "lane_oom_guidance", "LaneOutOfMemoryError"]
 
 # Values each lane keeps on the device at the peak of an iteration, in
 # units of n_hidden x n_variables: W, the trial W, the gradient and the
@@ -75,19 +82,102 @@ def fit_restarts(data, w0_batch: torch.Tensor, cfg: CorexConfig,
     from linearcorex_tpu_torch.models.corex import (_fit_program,
                                                     resolve_config)
     if n_samples is None and strategy == "samples":
-        n_samples = (data.q if isinstance(data, M.QuantizedData)
-                     else data).shape[0]
+        n_samples = M.n_rows(data)
     cfg = resolve_config(cfg, w0_batch.shape[-1], w0_batch.device,
                          n_samples=n_samples)
     return _fit_program(data, w0_batch, cfg, strategy)
 
 
-def fit_restarts_sharded(*args, **kwargs):
-    """The restart sweep sharded over a device mesh: not ported yet."""
-    raise NotImplementedError(
-        "fit_restarts_sharded (restart lanes over a device mesh) is not "
-        "ported to the PyTorch package yet (ROADMAP.md Queue 1, item 17 "
-        "(sharding)); the JAX package linearcorex_tpu supports it")
+def fit_restarts_sharded(data, w0_batch, cfg: CorexConfig, strategy: str,
+                         mesh, axis_name: str = "restarts",
+                         n_samples=None, check_overflow: bool = True,
+                         data_axis: Optional[str] = None):
+    """Restart sweep with the lanes split over mesh axis `axis_name`:
+    each group of ranks runs its k/r lanes as one solve and one
+    `all_gather` over the axis at the end hands every rank all k lanes,
+    in order. Nothing crosses the axis before that gather: the groups run
+    different iteration counts. Complements `parallel.sharding.
+    fit_sharded`, which shards the data of one big fit.
+
+    `data_axis` (a second mesh axis, e.g. 'data') also splits the sample
+    rows of the operand over that axis: the combined restarts x data
+    layout. Each lane group's (p, lanes·m) cross-moment is summed over
+    `data_axis` only. Samples strategy only: a Gram operand has no sample
+    axis to shard. `data` is the whole operand on every rank (or the
+    `ShardedSamples` block the mesh-aware prepare made).
+
+    A caller-built `QuantizedData` operand runs the int8 accumulator-wrap
+    guard here; check_overflow=False opts out when the same operand was
+    guarded upstream."""
+    from linearcorex_tpu_torch.models.corex import (_fit_program,
+                                                    resolve_config,
+                                                    torch_dtype)
+    from linearcorex_tpu_torch.parallel import sharding as S
+    device = S.check_mesh(mesh)
+    if M.is_quantized(data) and check_overflow:
+        M._check_int8_wrap(data)
+    if n_samples is None and strategy == "samples":
+        n_samples = M.n_rows(data)
+    cfg = resolve_config(cfg, w0_batch.shape[-1], mesh.device_type,
+                         n_samples=n_samples)
+    sizes = S.mesh_sizes(mesh)
+    d = sizes.get(axis_name)
+    if d is None or w0_batch.shape[0] % d:
+        raise ValueError(
+            f"the restart batch ({w0_batch.shape[0]} fits) shards over "
+            f"mesh axis {axis_name!r} (size {d}); the batch must divide "
+            f"evenly — pad the init stack (pick_n_hidden does this "
+            f"automatically) or adjust the mesh")
+    dt = torch_dtype(cfg.dtype)
+    axes = ()
+    if data_axis is not None:
+        if strategy != "samples":
+            raise ValueError(
+                "data_axis shards the SAMPLE rows of X; a Gram operand "
+                "carries none — the combined restarts x data layout is "
+                "samples-strategy only")
+        dd = sizes.get(data_axis)
+        if dd is None or M.n_rows(data) % dd:
+            raise ValueError(
+                f"data_axis={data_axis!r}: the {M.n_rows(data)} sample "
+                f"rows must divide the mesh axis (size {dd}) evenly — "
+                f"trim/pad the rows or adjust the mesh (rows shard "
+                f"without padding)")
+        axes = (S.mesh_axis(mesh, data_axis),)
+    if strategy == "samples":
+        rows = M._unsharded(data)[0]
+        rows = rows.q if isinstance(rows, M.QuantizedData) else rows
+        data = S.shard_samples(
+            data, axes, device,
+            None if isinstance(rows, torch.Tensor) else dt)
+    elif isinstance(data, M.QuantizedData):
+        data = M.QuantizedData(q=data.q.to(device),
+                               scale=data.scale.to(device))
+    else:
+        data = S._as_device_tensor(data, device,
+                                   None if isinstance(data, torch.Tensor)
+                                   else dt)
+    lane_axis = S.mesh_axis(mesh, axis_name)
+    per = w0_batch.shape[0] // d
+    w0 = S._as_device_tensor(
+        w0_batch[lane_axis.index * per:(lane_axis.index + 1) * per],
+        device, dt)
+    ws, mom, diag = _fit_program(data, w0, cfg, strategy)
+    # the per-stage iteration counts are kept on the host by the solver
+    parts = [ws, *mom, *(a.to(device) for a in diag)]
+    whole = all_gather_lanes(parts, lane_axis)
+    n_mom = len(mom)
+    diag_all = type(diag)(*whole[1 + n_mom:])
+    diag_all = diag_all._replace(
+        iters_per_stage=diag_all.iters_per_stage.to(
+            diag.iters_per_stage.device))
+    return whole[0], M.Moments(*whole[1:1 + n_mom]), diag_all
+
+
+def padded_lanes(batch: int, axis_size: int) -> int:
+    """Lane count after padding `batch` up to a multiple of the restart
+    axis (the lanes split into equal shares)."""
+    return batch + ((-batch) % axis_size)
 
 
 def _lane_bytes(lanes: int, m: int, p: int, itemsize: int) -> int:
@@ -120,24 +210,51 @@ def restart_batch_runner(mesh=None, restart_axis: str = "restarts",
                          data_axis: Optional[str] = None):
     """Batch-fit dispatcher for restart sweeps, shared by
     `Corex(n_restarts=k)` and `pick_n_hidden`: `fit_restarts` on one
-    device, under `lane_oom_guidance`, with the results read inside it.
-    A mesh (the sharded sweep) is not ported yet."""
-    del restart_axis, data_axis
-    if mesh is not None:
-        raise NotImplementedError(
-            "restart sweeps over a device mesh are not ported to the "
-            "PyTorch package yet (ROADMAP.md Queue 1, item 17 (sharding)); "
-            "the JAX package linearcorex_tpu supports them")
+    device or, with a mesh, `fit_restarts_sharded` with the lanes split
+    over `restart_axis` (and, when `data_axis` is given, the sample rows
+    over that axis too). A batch that does not divide the axis is padded
+    by repeating the last init, and the padded lanes are dropped from
+    every result before selection. Both run under `lane_oom_guidance`,
+    with the results read inside it."""
+    if mesh is None:
+        def run_single(data, w0, cfg, strategy, n):
+            k, m, p = w0.shape
+            with lane_oom_guidance(k, m, p, w0.element_size()):
+                out = fit_restarts(data, w0, cfg, strategy, n_samples=n)
+                if w0.device.type == "cuda":
+                    torch.cuda.synchronize(w0.device)
+            return out
 
-    def run_single(data, w0, cfg, strategy, n):
+        return run_single
+    if restart_axis not in mesh.mesh_dim_names:
+        raise ValueError(
+            f"mesh has axes {tuple(mesh.mesh_dim_names)}; the restart "
+            f"batch shards over {restart_axis!r} — build the mesh with "
+            f"that axis (make_mesh((({restart_axis!r}, n_devices),))) or "
+            f"pass restart_axis=")
+    d = dict(zip(mesh.mesh_dim_names, tuple(mesh.mesh.shape)))[restart_axis]
+
+    def run(data, w0, cfg, strategy, n):
         k, m, p = w0.shape
-        with lane_oom_guidance(k, m, p, w0.element_size()):
-            out = fit_restarts(data, w0, cfg, strategy, n_samples=n)
-            if w0.device.type == "cuda":
-                torch.cuda.synchronize(w0.device)
+        pad = padded_lanes(k, d) - k
+        with lane_oom_guidance((k + pad) // d, m, p, w0.element_size()):
+            if pad:
+                w0 = torch.cat([w0, w0[-1:].expand(pad, -1, -1)], dim=0)
+            # check_overflow=False: every caller's prepare path already
+            # ran the int8 wrap guard on this operand
+            out = fit_restarts_sharded(data, w0, cfg, strategy, mesh,
+                                       axis_name=restart_axis, n_samples=n,
+                                       check_overflow=False,
+                                       data_axis=data_axis)
+            if mesh.device_type == "cuda":
+                torch.cuda.synchronize()
+        if pad:
+            out = tuple(type(part)(*(a[:-pad] for a in part))
+                        if isinstance(part, tuple) else part[:-pad]
+                        for part in out)
         return out
 
-    return run_single
+    return run
 
 
 def best_restart(ws_batch, mom_batch, diag_batch):

@@ -25,6 +25,7 @@ from linearcorex_tpu.oracle import OracleCorex
 from linearcorex_tpu.utils.checkpoint import save_corex
 from linearcorex_tpu_torch.config import CorexConfig
 from linearcorex_tpu_torch.models.corex import resolve_config
+from linearcorex_tpu_torch.parallel.sharding import ShardingPlan
 from tests.conftest import block_data
 
 # One intra-op thread: the suite runs its files in parallel worker
@@ -210,8 +211,10 @@ def test_resolve_config_per_device():
 
 
 @pytest.mark.parametrize("kwargs,fit_kwargs", [
-    (dict(n_restarts=2), dict(mesh=object())),
-    ({}, dict(mesh=object())),
+    (dict(n_restarts=2), dict(mesh=object(),
+                              sharding_plan=ShardingPlan(shard_vars=True))),
+    ({}, dict(mesh=object(),
+              sharding_plan=ShardingPlan(shard_factors=True))),
     (dict(matmul_precision="high"), {}),
 ])
 def test_unported_options_raise(kwargs, fit_kwargs, data):
@@ -299,7 +302,9 @@ def test_not_fitted_and_surface(data):
 
 PORT_MODULES = ["config", "core.solver", "models.corex", "models.selection",
                 "models.stacked", "ops.cuda_moments", "ops.moments",
-                "ops.preprocessing", "parallel.restarts", "utils.build",
+                "ops.preprocessing", "parallel.collectives",
+                "parallel.launch", "parallel.restarts", "parallel.sharding",
+                "utils.build",
                 "utils.checkpoint", "utils.interop", "utils.native",
                 "utils.profiling", "utils.streaming"]
 

@@ -410,3 +410,67 @@ def test_two_layer_stack_on_card_agrees_with_cpu():
     ys = gpu.transform_all(x)
     assert all(y.is_cuda for y in ys)
     assert tuple(gpu.predict(ys[-1]).shape) == x.shape
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_dtype", ["float32", "int8"])
+def test_mesh_fit_in_a_world_of_one_is_the_plain_samples_fit(tmp_path,
+                                                             matmul_dtype):
+    """One NCCL rank on the card: Corex.fit(mesh=) runs the samples
+    strategy through the chain kernel and, an all-reduce over one rank
+    changing no bit, ends bitwise where the plain samples fit does; so do
+    transform and score under the mesh, and a restarts-axis sweep."""
+    _need_cuda()
+    import torch.distributed as dist
+
+    from linearcorex_tpu_torch.parallel import sharding as S
+    from linearcorex_tpu_torch.parallel.launch import init_local_group
+    x = torch.as_tensor(_small_blocks()[0], dtype=torch.float32)
+    kw = dict(n_hidden=8, seed=0, max_iter=200, tol=1e-4,
+              matmul_dtype=matmul_dtype, device="cuda")
+    init_local_group("nccl", 0, 1, str(tmp_path / "rendezvous"),
+                     timeout=120.0)
+    try:
+        mesh = S.make_mesh()
+        CM.ns_chain.launches = 0
+        S.reset_collective_counts()
+        a = lct.Corex(**kw).fit(x, mesh=mesh)
+        launches = CM.ns_chain.launches
+        calls = S.collective_counts()
+        b = lct.Corex(moment_strategy="samples", **kw).fit(x)
+        assert launches > 0
+        assert torch.equal(a.ws, b.ws) and a.tc == b.tc
+        assert torch.equal(a.diagnostics.iters_per_stage,
+                           b.diagnostics.iters_per_stage)
+        assert torch.equal(a.transform(x, mesh=mesh), b.transform(x))
+        assert torch.equal(a.score(x, mesh=mesh), b.score(x))
+        assert calls and all(c.kind == "all_reduce" and c.axis == "data"
+                             for c in calls)
+        rmesh = S.make_mesh((("restarts", 1),))
+        CM.ns_chain.lane_launches = 0
+        c = lct.Corex(n_restarts=3, **kw).fit(x, mesh=rmesh)
+        d = lct.Corex(n_restarts=3, **kw).fit(x)
+        assert CM.ns_chain.lane_launches > 0
+        assert torch.equal(c.ws, d.ws) and c.best_restart_ == d.best_restart_
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_a_mesh_is_held_to_its_worlds_backend(tmp_path):
+    """An NCCL world carries a CUDA mesh and refuses a CPU mesh by name
+    (the mirror of the gloo world's refusal of a CUDA mesh, which the
+    CPU tests cover)."""
+    _need_cuda()
+    import torch.distributed as dist
+
+    from linearcorex_tpu_torch.parallel import sharding as S
+    from linearcorex_tpu_torch.parallel.launch import init_local_group
+    init_local_group("nccl", 0, 1, str(tmp_path / "rendezvous"),
+                     timeout=120.0)
+    try:
+        assert S.check_mesh(S.make_mesh()).type == "cuda"
+        with pytest.raises(ValueError, match="needs the gloo backend"):
+            S.make_mesh(device="cpu")
+    finally:
+        dist.destroy_process_group()

@@ -348,13 +348,25 @@ def test_lane_oom_raises_guidance(monkeypatch):
 
 
 def test_mesh_forms_raise_by_item():
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TR.restart_batch_runner(mesh=object())
-    with pytest.raises(NotImplementedError, match="item 17"):
-        TR.fit_restarts_sharded(None, None, None, "samples", None)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # the sweeps over a mesh run (tests/test_torch_sharding.py); what still
+    # raises by item is a plan over the variable or factor axis, and a
+    # mesh without an initialized process group raises by name
+    from linearcorex_tpu_torch.parallel.sharding import ShardingPlan
+
+    class NoRestartAxis:
+        mesh_dim_names = ("data",)
+
+    with pytest.raises(ValueError, match="restart batch shards over"):
+        TR.restart_batch_runner(mesh=NoRestartAxis())
+    with pytest.raises(RuntimeError, match="default process group"):
+        TR.fit_restarts_sharded(None, None, None, "samples", object())
+    with pytest.raises(RuntimeError, match="default process group"):
         lct.Corex(n_restarts=2, device="cpu", **KW).fit(
             _lottery_data(), mesh=object())
+    with pytest.raises(NotImplementedError, match="item 17b"):
+        lct.Corex(n_restarts=2, device="cpu", **KW).fit(
+            _lottery_data(), mesh=object(),
+            sharding_plan=ShardingPlan(shard_vars=True))
 
 
 def test_verbose_sweep_prints_the_winner(capsys):

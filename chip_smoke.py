@@ -85,6 +85,21 @@ non-zero and does not print the final line.
              transform(mesh=) and score(mesh=) on the float32 model bitwise
              the plain calls. Reported: wall seconds and iterations/s of
              the mesh fit and the plain samples fit, beside the gram fit's.
+   sharded_vars  the same world of one: Corex.fit(x, mesh=) under the
+             variable and factor plans, var (the gram strategy with Σ's
+             rows over `var`, and samples), data x var, factor and data x
+             factor, in float32 and with matmul_dtype='int8': each must be
+             the plain fit with use_pallas='never' of the strategy its
+             plan resolves bit for bit (W, TC, iterations per stage; the
+             plans turn the chain kernel off), with no collective payload
+             beyond max(n·m, m·p). The var fit with use_pallas='always'
+             must gather C_xy once per evaluation, launch the kernel as
+             often as the plain kernel fit and end bitwise where it does.
+             transform/predict/score/covariance_blocks(mesh=) under the
+             var plan bitwise the plain calls (predict and the blocks as
+             DTensors split over `var`), get_covariance() raising by
+             name. Reported: one m x p all-gather over `var` alone, and
+             the mesh fits' walls beside the plain fits'.
    streaming x in ten batches of 1000 rows into GramAccumulator(P) on the
              card: correlation() within 1e-5 of compute_gram of the
              standardized x; acc.fit(n_hidden=512, optimizer='auto',
@@ -674,6 +689,198 @@ def sharded_phase(x, card, sweep_ref=None, backend="nccl"):
         finally:
             dist.destroy_process_group()
     return launches, lane_launches
+
+
+def sharded_vars_phase(x, card, backend="nccl"):
+    """Phase sharded_vars: Corex.fit(mesh=) under the variable and factor
+    plans in a world of one rank on the card, where every block is the
+    whole thing and every collective runs over one rank: each mesh fit
+    must be the plain fit with use_pallas='never' bit for bit (the plans
+    turn the chain kernel off), and with use_pallas='always' the var fit
+    must gather C_xy, launch the kernel as often as the plain kernel fit
+    and end bitwise where it does. Var-plan serving bitwise the plain
+    calls. Returns {path: launches} of the kernel path."""
+    import torch
+    import torch.distributed as dist
+
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.parallel import sharding as S
+    from linearcorex_tpu_torch.parallel.collectives import all_gather_dim
+    from linearcorex_tpu_torch.parallel.launch import init_local_group
+
+    def fit_kw(**kw):
+        return dict(n_hidden=M, seed=0, tol=FIT_TOL, max_iter=FIT_MAX_ITER,
+                    optimizer="auto", device="cuda", **kw)
+
+    def counts():
+        return [dict(c._asdict(), calls=n)
+                for c, n in S.collective_counts().items()]
+
+    var_plan = S.ShardingPlan(shard_samples=False, shard_vars=True)
+    # (name, mesh axes, plan, the strategy the plan resolves at n = p)
+    layouts = (
+        ("var_gram", (("var", 1),), var_plan, "gram"),
+        ("var_samples", (("var", 1),), var_plan, "samples"),
+        ("data_var", (("data", 1), ("var", 1)),
+         S.ShardingPlan(shard_vars=True), "gram"),
+        ("factor", (("model", 1),),
+         S.ShardingPlan(shard_samples=False, shard_factors=True), "gram"),
+        ("data_factor", (("data", 1), ("model", 1)),
+         S.ShardingPlan(shard_factors=True), "samples"))
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init_local_group(backend, 0, 1, os.path.join(tmp, "rendezvous"),
+                         timeout=600.0)
+        try:
+            meshes = {axes: S.make_mesh(axes) for _, axes, _, _ in layouts}
+            var_mesh = meshes[(("var", 1),)]
+            emit("sharded_vars_world", backend=dist.get_backend(),
+                 world_size=1, meshes=[list(a) for a in meshes],
+                 init_seconds=time.perf_counter() - t0, card=card)
+            # one m x p float32 all-gather over `var` alone, as a fit ends
+            w = torch.zeros((M, P), device="cuda")
+            var = S.var_axis(var_mesh, var_plan)
+            gather_ms = time_ms(lambda: all_gather_dim(w, -1, var), inner=20)
+            clone_ms = time_ms(lambda: w.clone(), inner=20)
+            del w
+            S.reset_collective_counts()
+            emit("sharded_vars_all_gather", m=M, p=P, bytes=M * P * 4,
+                 all_gather_ms=gather_ms, of_which_copy_ms=clone_ms,
+                 card=card)
+
+            plain = {}
+            for dt in ("float32", "int8"):
+                for strategy in ("gram", "samples"):
+                    model = lct.Corex(**fit_kw(
+                        use_pallas="never", moment_strategy=strategy,
+                        matmul_dtype=dt))
+                    _, n_l, secs, _ = counted(lambda: model.fit(x))
+                    check(n_l == 0, "use_pallas='never' launched the kernel")
+                    plain[dt, strategy] = dict(
+                        model=model, seconds=secs,
+                        iters=model.diagnostics.iters_per_stage.tolist())
+            served = None
+            for dt in ("float32", "int8"):
+                for name, axes, plan, strategy in layouts:
+                    kw = dict(matmul_dtype=dt)
+                    if name == "var_samples":
+                        kw["moment_strategy"] = "samples"
+                    model = lct.Corex(**fit_kw(**kw))
+                    S.reset_collective_counts()
+                    _, n_l, secs, msgs = counted(lambda: model.fit(
+                        x, mesh=meshes[axes], sharding_plan=plan))
+                    calls = counts()
+                    ref = plain[dt, strategy]
+                    iters = model.diagnostics.iters_per_stage.tolist()
+                    label = f"{name}/{dt}"
+                    check(n_l == 0, f"{label}: use_pallas='auto' launched "
+                          f"the kernel under a var/factor plan")
+                    check(model.resolved_optimizer_ == "fixed_point",
+                          f"{label}: optimizer {model.resolved_optimizer_}")
+                    check(torch.equal(model.ws, ref["model"].ws)
+                          and model.tc == ref["model"].tc
+                          and iters == ref["iters"],
+                          f"{label}: the world-of-one mesh fit is not the "
+                          f"plain {strategy} fit bit for bit (TC {model.tc} "
+                          f"against {ref['model'].tc}, iterations {iters} "
+                          f"against {ref['iters']})")
+                    guard = [w for w in msgs if "overflow" in w]
+                    check(not guard, f"{label}: the int8 wrap guard spoke")
+                    # besides the gram build's one sum of Σ's row block
+                    # over the sample axes, at set-up
+                    build = [c for c in calls if strategy == "gram"
+                             and c["axis"] == "data" and c["calls"] == 1
+                             and c["numel"] == P * P]
+                    check(all(c["numel"] <= max(N * M, M * P)
+                              and c["numel"] != N * P
+                              for c in calls if c not in build),
+                          f"{label}: a payload beyond max(n·m, m·p): {calls}")
+                    emit("sharded_vars", layout=name, matmul_dtype=dt,
+                         strategy=strategy, bitwise_plain_fit=True,
+                         tc=model.tc, iters_per_stage=iters,
+                         mesh_fit_seconds=secs,
+                         plain_fit_seconds=ref["seconds"],
+                         mesh_over_plain=secs / ref["seconds"],
+                         collectives=calls, card=card)
+                    if (name, dt) == ("var_gram", "float32"):
+                        served = model
+                    else:
+                        del model
+            plain_f32 = plain["float32", "gram"]["model"]
+            del plain
+
+            # the kernel path: use_pallas='always' under the var plan
+            kp = lct.Corex(**fit_kw(use_pallas="always"))
+            _, n_plain, s_plain, _ = counted(lambda: kp.fit(x))
+            km = lct.Corex(**fit_kw(use_pallas="always"))
+            S.reset_collective_counts()
+            _, launches["sharded_vars_always"], s_mesh, _ = counted(
+                lambda: km.fit(x, mesh=var_mesh, sharding_plan=var_plan))
+            calls = counts()
+            iters = km.diagnostics.iters_per_stage.tolist()
+            evals = sum(iters) + len(iters)
+            gathers = [c for c in calls if c["kind"] == "all_gather"
+                       and c["numel"] == P * M]
+            check(launches["sharded_vars_always"] > 0
+                  and launches["sharded_vars_always"] == n_plain,
+                  f"the var-plan kernel fit launched "
+                  f"{launches['sharded_vars_always']} times, the plain "
+                  f"kernel fit {n_plain}")
+            check(torch.equal(km.ws, kp.ws) and km.tc == kp.tc
+                  and iters == kp.diagnostics.iters_per_stage.tolist(),
+                  f"the var-plan kernel fit is not the plain kernel fit bit "
+                  f"for bit (TC {km.tc} against {kp.tc})")
+            # each evaluation gathers W's columns for Σ·Wᵀ and C_xy for
+            # the kernel, both (p, m)
+            check(sum(c["calls"] for c in gathers) >= 2 * evals,
+                  f"the var-plan kernel fit made "
+                  f"{sum(c['calls'] for c in gathers)} (p, m) gathers for "
+                  f"{evals} evaluations: {calls}")
+            emit("sharded_vars_kernel", layout="var_gram",
+                 use_pallas="always", bitwise_plain_kernel_fit=True,
+                 kernel_launches=launches["sharded_vars_always"], tc=km.tc,
+                 iters_per_stage=iters, evaluations=evals,
+                 pm_gathers=sum(c["calls"] for c in gathers),
+                 mesh_fit_seconds=s_mesh, plain_fit_seconds=s_plain,
+                 collectives=calls, card=card)
+            del kp, km
+
+            # var-plan serving against the single-device calls
+            t0 = time.perf_counter()
+            y = served.transform(x, mesh=var_mesh)
+            xr = served.predict(y, mesh=var_mesh)
+            score = served.score(x, mesh=var_mesh)
+            blocks = list(served.covariance_blocks(4096, mesh=var_mesh))
+            torch.cuda.synchronize()
+            serve_s = time.perf_counter() - t0
+            check(torch.equal(y, plain_f32.transform(x)),
+                  "var-plan transform differs from the plain call")
+            check(torch.equal(xr.full_tensor(), plain_f32.predict(y)),
+                  "var-plan predict differs from the plain call")
+            check(torch.equal(score, plain_f32.score(x)),
+                  "var-plan score differs from the plain call")
+            ref_blocks = list(plain_f32.covariance_blocks(4096))
+            check([s for s, _ in blocks] == [s for s, _ in ref_blocks]
+                  and all(torch.equal(r.full_tensor(), q)
+                          for (_, r), (_, q) in zip(blocks, ref_blocks)),
+                  "var-plan covariance_blocks differ from the plain blocks")
+            try:
+                served.get_covariance()
+                raised = False
+            except ValueError as e:
+                raised = "var-sharded" in str(e)
+            check(raised, "get_covariance() on var-sharded state did not "
+                  "raise by name")
+            emit("sharded_vars_serving", transform_bitwise=True,
+                 predict_bitwise=True, score_bitwise=True,
+                 blocks_bitwise=True, blocks=len(blocks),
+                 predict_placements=[str(p) for p in xr.placements],
+                 score=float(score), serving_seconds=serve_s, card=card)
+            del served, plain_f32, y, xr, blocks, ref_blocks
+        finally:
+            dist.destroy_process_group()
+    return launches
 
 
 def serving(model, x, card):
@@ -1619,6 +1826,7 @@ def main():
     launches.update(mesh_launches)
     lane_launches.update(mesh_lane_launches)
     del sweep_ref
+    launches.update(sharded_vars_phase(x, card))
 
     # the moment-input and staged fits, at the same width
     native_phase(x, card)

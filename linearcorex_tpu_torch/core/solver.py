@@ -21,6 +21,12 @@ done; then all lanes enter the next stage. One host read per iteration
 fetches the k accept flags and the k step sizes. So in float64 lane r
 runs the iterations of the single fit from W0[r], stage by stage. The
 diagnostics gain a leading lane axis.
+
+Split W: under a variable or factor plan (`parallel.sharding`) each rank
+holds a block of W, and the step size max|ΔW| that decides convergence is
+a maximum over every block: one MAX `all_reduce` over the axes W is split
+over (`w_axes`). It is exact, so every rank reads the same delta, stops at
+the same iteration and never waits in a collective the others left.
 """
 
 from __future__ import annotations
@@ -31,6 +37,7 @@ import numpy as np
 import torch
 
 from linearcorex_tpu_torch.config import CorexConfig
+from linearcorex_tpu_torch.parallel.collectives import all_reduce
 
 ObjGrad = Callable[[torch.Tensor, torch.Tensor],
                    Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -55,9 +62,10 @@ def _np_dtype(t: torch.Tensor) -> np.dtype:
 
 
 def _stage(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
-           eps: torch.Tensor, tol):
+           eps: torch.Tensor, tol, w_axes=()):
     """Run one annealing stage to convergence. `tol` is the stage's
-    tolerance as a numpy scalar of the compute dtype.
+    tolerance as a numpy scalar of the compute dtype; `w_axes` the mesh
+    axes W is split over.
 
     Optimizer: deterministic step-halving line search over plain GD,
     heavy-ball momentum (v ← β·v − lr·g, reset to 0 on a rejected step), or
@@ -84,7 +92,8 @@ def _stage(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
         else:
             ws_new = ws - float(lr) * g
         f_new, g_new, tc_new = obj_grad(ws_new, eps)
-        step = torch.max(torch.abs(ws_new - ws))
+        step = all_reduce(torch.max(torch.abs(ws_new - ws)), w_axes,
+                          op="max")
         accept, step = torch.stack(
             [(f_new <= f).to(ws.dtype), step]).tolist()
         if accept:
@@ -109,7 +118,7 @@ def _stage(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
 
 
 def _stage_lanes(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
-                 eps: torch.Tensor, tol):
+                 eps: torch.Tensor, tol, w_axes=()):
     """`_stage` for k lanes side by side, ws0 (k, m, p): the rules of
     `_stage` applied to every lane on its own, a lane frozen once its own
     predicate is false, until no lane runs. A frozen lane is evaluated at
@@ -146,7 +155,8 @@ def _stage_lanes(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
         else:
             ws_new = torch.where(run3, ws - lr_t * g, ws)
         f_new, g_new, tc_new = obj_grad(ws_new, eps)
-        step = torch.amax(torch.abs(ws_new - ws), dim=(-2, -1))
+        step = all_reduce(torch.amax(torch.abs(ws_new - ws), dim=(-2, -1)),
+                          w_axes, op="max")
         keep = (f_new <= f) & run_t
         # one host read: the k accept flags and the k step sizes
         flags = torch.stack([keep.to(dt), step]).cpu().numpy()
@@ -177,10 +187,13 @@ def _stage_lanes(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
     return ws, (it, tc, delta, f, row)
 
 
-def fit_core(obj_grad: ObjGrad, w0: torch.Tensor, cfg: CorexConfig):
+def fit_core(obj_grad: ObjGrad, w0: torch.Tensor, cfg: CorexConfig,
+             w_axes=()):
     """Full annealed fit: every stage of cfg.anneal_schedule() in turn,
     each run to its cfg.tol_schedule() tolerance. W0 of shape (k, m, p)
-    runs k lanes (`_stage_lanes`). Returns (ws, FitDiagnostics)."""
+    runs k lanes (`_stage_lanes`). `w0` may be this rank's block of W,
+    split over the mesh axes `w_axes` (`parallel.collectives.Axis`).
+    Returns (ws, FitDiagnostics)."""
     npdt = _np_dtype(w0)
     dev, dt = w0.device, w0.dtype
     stage = _stage_lanes if w0.ndim == 3 else _stage
@@ -190,7 +203,8 @@ def fit_core(obj_grad: ObjGrad, w0: torch.Tensor, cfg: CorexConfig):
     iters, tcs, deltas, objs, hists = [], [], [], [], []
     for eps, tol in zip(schedule, tols):
         eps_t = torch.tensor(eps, dtype=dt, device=dev)
-        ws, (it, tc, delta, f, row) = stage(obj_grad, cfg, ws, eps_t, tol)
+        ws, (it, tc, delta, f, row) = stage(obj_grad, cfg, ws, eps_t, tol,
+                                            w_axes)
         iters.append(it)
         tcs.append(tc)
         deltas.append(delta)

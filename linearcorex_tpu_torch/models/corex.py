@@ -1,6 +1,6 @@
 """The `Corex` estimator of the PyTorch port: fit and inference on one
-device, and over a device mesh for plans over the sample and restart
-axes.
+device, and over a device mesh for plans over the sample, variable,
+factor and restart axes.
 
 Port of `linearcorex_tpu/models/corex.py`:
 the constructor surface (stored verbatim, validated at first use), the
@@ -20,11 +20,12 @@ and the fitted properties `tc`, `tcs`, `mis`, `clusters`, `history` and
 them.
 
 `fit(mesh=...)`, `fit_transform` and the serving methods take a
-`torch.distributed` DeviceMesh and a `ShardingPlan` over the sample axes
-(`parallel.sharding` states the model of execution: every rank makes the
-same call, keeps its own row block, and gets the whole result);
+`torch.distributed` DeviceMesh and a `ShardingPlan` (`parallel.sharding`
+states the model of execution: every rank makes the same call, keeps its
+own block of the data, and ends with the whole fitted state);
 `n_restarts=k` under a mesh splits the lanes over its `restarts` axis
-(`parallel.restarts`).
+(`parallel.restarts`). Under `shard_vars` serving keeps p-sized outputs
+split over `var` (a `DTensor`).
 
 Differences by design:
 - `device` (default "cuda") names where the fit runs. A CUDA device that
@@ -37,10 +38,15 @@ Differences by design:
   mode. The JAX package's m >= 128 gate was a TPU measurement and is not
   copied.
 
-Options of the JAX package that are not ported yet (plans that shard
-the variable or factor axis, a mesh in the moment-input fits, the faster
-`matmul_precision` values, AOT `warmup`) raise NotImplementedError, each
-naming its ROADMAP.md queue item.
+- After a mesh fit the fitted state (W, the moments, theta) is whole on
+  every rank, under every plan: the JAX package re-places it per
+  `serving_state_specs`, but m x p is small beside the (n, p) X and the
+  p-sized outputs, which stay split. Each serving call takes this rank's
+  block of the state.
+
+Options of the JAX package that are not ported yet (a mesh in the
+moment-input fits, the faster `matmul_precision` values, AOT `warmup`)
+raise NotImplementedError, each naming its ROADMAP.md queue item.
 """
 
 from __future__ import annotations
@@ -221,6 +227,15 @@ def resolve_restart_mesh_layout(mesh, plan):
             f"((({RESTART_AXIS!r}, a), ({DATA_AXIS!r}, b))) — or call "
             f"parallel.restarts.fit_restarts_sharded directly for a "
             f"custom axis name.")
+    check_restart_plan(plan)
+    if plan.shard_samples and DATA_AXIS in mesh.mesh_dim_names:
+        return plan, DATA_AXIS
+    return None, None
+
+
+def check_restart_plan(plan) -> None:
+    """A restart sweep splits its lanes over `restarts` and its rows over
+    `data` only: var, factor and slice plans raise by name."""
     if plan.shard_vars or plan.shard_factors or plan.shard_slices:
         raise ValueError(
             "n_restarts > 1 under fit(mesh=...) supports sample "
@@ -228,9 +243,6 @@ def resolve_restart_mesh_layout(mesh, plan):
             "var/factor/slice sharding has no restart-sweep program. "
             "Use n_restarts=1 for those layouts, or drop them from the "
             "ShardingPlan.")
-    if plan.shard_samples and DATA_AXIS in mesh.mesh_dim_names:
-        return plan, DATA_AXIS
-    return None, None
 
 
 def chain_mode(cfg: CorexConfig) -> bool:
@@ -238,8 +250,9 @@ def chain_mode(cfg: CorexConfig) -> bool:
     return cfg.use_pallas == "always"
 
 
-def _make_obj_grad(data, cfg: CorexConfig, strategy: str):
-    """Close the active objective/direction over the data (X or Σ). For
+def _make_obj_grad(data, cfg: CorexConfig, strategy: str, model=None):
+    """Close the active objective/direction over the data (X or Σ); under
+    a factor split (`model`, an Axis) over this rank's rows of W. For
     optimizer='fixed_point' the returned "gradient" is the fixed-point
     residual ws − Ŵ, which the solver's plain-GD step turns into the
     damped update (1−γ)·ws + γ·Ŵ."""
@@ -269,7 +282,7 @@ def _make_obj_grad(data, cfg: CorexConfig, strategy: str):
     if not cfg.discourage_overlap:
         # fixed_point + overlap is rejected by CorexConfig.__post_init__
         fn = M.overlap_obj_grad_gram if gram else M.overlap_obj_grad_samples
-        return lambda ws, eps: fn(ws, data, eps, cfg.y_scale)
+        return lambda ws, eps: fn(ws, data, eps, cfg.y_scale, model=model)
     bf16 = cfg.matmul_dtype == "bfloat16"
     chain = chain_mode(cfg)
     if cfg.optimizer == "fixed_point":
@@ -277,21 +290,31 @@ def _make_obj_grad(data, cfg: CorexConfig, strategy: str):
     else:
         fn = M.ns_obj_grad_gram if gram else M.ns_obj_grad_samples
     return lambda ws, eps: fn(ws, data, eps, cfg.y_scale, cfg.rho_clip,
-                              bf16=bf16, chain_kernel=chain)
+                              bf16=bf16, chain_kernel=chain, model=model)
 
 
-def _fit_program(data, w0, cfg: CorexConfig, strategy: str):
+def _fit_program(data, w0, cfg: CorexConfig, strategy: str, model=None):
     """The complete fit: annealed solve → final moments → factor sort.
     Returns (ws, Moments, FitDiagnostics). W0 of shape (k, m, p) fits k
-    restart lanes and returns each with a leading lane axis."""
+    restart lanes and returns each with a leading lane axis.
+
+    Split W (`parallel.sharding`): `w0` is this rank's block, its columns
+    over the operand's `var` axis, its rows over `model`. The solve runs
+    on the blocks; the final W and moments are gathered whole before the
+    sort, so the result is whole on every rank."""
+    sp = M.Split(M.var_of(data), model)
     with M.full_f32_matmul():
-        ws, diag = fit_core(_make_obj_grad(data, cfg, strategy), w0, cfg)
+        ws, diag = fit_core(_make_obj_grad(data, cfg, strategy, model), w0,
+                            cfg, sp.w_axes)
         zero = torch.zeros((), dtype=w0.dtype, device=w0.device)
         if strategy == "gram":
             c_xy = M.cxy_gram(data, ws, zero)
         else:
             c_xy = M.cxy_samples(data, ws, zero)
-        mom = M.moments_from_cxy(ws, c_xy, cfg.y_scale, cfg.rho_clip)
+        mom = M.moments_from_cxy(ws, c_xy, cfg.y_scale, cfg.rho_clip,
+                                 *sp)
+        if sp.w_axes:
+            ws, mom = sp.whole_w(ws), M.whole_moments(mom, *sp)
         ws_sorted, order = sort_by_tcs(ws, mom.tcs)
         return ws_sorted, M.permute_moments(mom, order), diag
 
@@ -300,11 +323,15 @@ def _spectral_init(data, omega, strategy: str, matmul_dtype: str):
     """Randomized range-finder init (init='spectral'): W₀ = Qᵀ with
     Q·R = Σ_emp·Ω for a random (p, m) block Ω, so the rows of W start
     spanning the top-m subspace of Σ̂. One Σ-application through the
-    solver's own operator (any operand mode), then a thin QR."""
+    solver's own operator (any operand mode), then a thin QR. An operand
+    split over `var` applies Σ to this rank's rows of Ω, and the (p, m)
+    product is gathered whole over `var` for the QR."""
     apply = M._apply_sigma_t(data, matmul_dtype == "bfloat16",
                              strategy == "gram", omega.dtype)
+    sp = M.Split(var=M.var_of(data))
     with M.full_f32_matmul():
-        q, _ = torch.linalg.qr(apply(omega).to(omega.dtype))
+        q, _ = torch.linalg.qr(sp.all_vars(apply(sp.my_vars(omega)))
+                               .to(omega.dtype))
     return q.T.contiguous()
 
 
@@ -313,8 +340,9 @@ def prepare_operand(xp, strategy: str, matmul_dtype: str):
     cast to bf16 under matmul_dtype='bfloat16', or quantized with the
     int32 wrap guard under 'int8' (after preprocessing, whose
     standardized columns the per-tensor scale relies on). `xp` may be a
-    `ShardedSamples` row block (the mesh-aware prepare): the Gram matrix
-    then sums the ranks' partial products and comes out replicated; the
+    `ShardedSamples` block (the mesh-aware prepare): the Gram matrix then
+    sums the ranks' partial products and comes out replicated, or as this
+    rank's row block of Σ when the columns are split over `var`; the
     samples operand stays sharded."""
     data = M.compute_gram(xp) if strategy == "gram" else xp
     if matmul_dtype == "bfloat16":
@@ -483,58 +511,72 @@ def _cov_overlap(cy, c_xy, std):
     return _unit_diag_scaled(M._mm(c_xy, sol), std)
 
 
-def _matmat_ns(rhoinvrho, si, std, v):
-    """Σ̂·V for V (p, k) on the non-overlap path; p x p never forms."""
+def _matmat_ns(rhoinvrho, si, std, v, var=None):
+    """Σ̂·V for V (p, k) on the non-overlap path; p x p never forms.
+    Under `var` every argument is this rank's block of variables and the
+    (m, k) product Z·V is summed over `var`: the rows I of Σ̂·V."""
     z = _factor_z_ns(rhoinvrho, si)
     sv = std[:, None] * v
-    low = M._mm(z.T, M._mm(z, sv))
+    low = M._mm(z.T, M.Split(var=var).vsum(M._mm(z, sv)))
     diag = torch.sum(z * z, dim=0)
     return std[:, None] * (low + (1.0 - diag)[:, None] * sv)
 
 
-def _matmat_overlap(cy, c_xy, std, v):
-    """Σ̂·V for V (p, k) on the overlap path; p x p never forms."""
+def _matmat_overlap(cy, c_xy, std, v, var=None):
+    """Σ̂·V for V (p, k) on the overlap path; p x p never forms (the rows
+    I of it under `var`, as `_matmat_ns`)."""
     sol = torch.linalg.solve(cy, c_xy.T)                   # m x p
     sv = std[:, None] * v
-    low = M._mm(c_xy, M._mm(sol, sv))
+    low = M._mm(c_xy, M.Split(var=var).vsum(M._mm(sol, sv)))
     diag = torch.sum(c_xy * sol.T, dim=1)
     return std[:, None] * (low + (1.0 - diag)[:, None] * sv)
 
 
-def _gaussian_ll(xp, z, std, axes=()):
+def _gaussian_ll(xp, z, std, axes=(), var=None):
     """Mean Gaussian log-likelihood of preprocessed rows under Σ̂_std =
     diag(d) + ZᵀZ (d = 1 − Σ_j z_ji², the unit-diagonal completion),
     through Woodbury and the matrix determinant lemma: O(n·p·m + m³), the
     p x p never materializes. The `− Σ log std` term maps the density back
     through the affine standardization to the data's own scale. Rows split
     over the mesh `axes`: the per-row likelihoods (n values) are gathered
-    and the mean taken over all of them on every rank."""
-    p = xp.shape[1]
+    and the mean taken over all of them on every rank. Variables split
+    over `var` (xp, z and std this rank's columns): the terms that sum
+    over p, (m, m), (n_loc, m) and (n_loc,) blocks, are summed over
+    `var`."""
+    vs = M.Split(var=var).vsum
+    p = xp.shape[1] * (var.size if var is not None else 1)
     mdim = z.shape[0]
     d = torch.clamp(1.0 - torch.sum(z * z, dim=0), min=1e-6)
     zd = z / d[None, :]
-    a = torch.eye(mdim, dtype=z.dtype, device=z.device) + M._mm(zd, z.T)
+    a = torch.eye(mdim, dtype=z.dtype, device=z.device) + vs(M._mm(zd, z.T))
     chol = M._cholesky_or_nan(a)
-    logdet = torch.sum(torch.log(d)) + 2.0 * torch.sum(
+    logdet = vs(torch.sum(torch.log(d))) + 2.0 * torch.sum(
         torch.log(torch.diagonal(chol)))
     t = xp / d[None, :]
-    q1 = torch.sum(xp * t, dim=1)
-    u = M._mm(t, z.T)                                        # n x m
+    q1 = vs(torch.sum(xp * t, dim=1))
+    u = vs(M._mm(t, z.T))                                    # n x m
     sol = torch.cholesky_solve(u.T, chol, upper=False)       # m x n
     q2 = torch.sum(u.T * sol, dim=0)
     log2pi = torch.log(torch.tensor(2.0 * math.pi, dtype=xp.dtype,
                                     device=xp.device))
     ll = all_gather_rows(-0.5 * (q1 - q2 + logdet + p * log2pi), axes)
-    return torch.mean(ll) - torch.sum(torch.log(std))
+    return torch.mean(ll) - vs(torch.sum(torch.log(std)))
 
 
-def _cov_rows(z, std, start: int, block: int):
+def _cov_rows(z, std, start: int, block: int, z_cols=None, std_cols=None,
+              col0: int = 0):
     """Dense rows [start, start + block) of Σ̂ from Z, scaled back by
-    std."""
-    rows = M._mm(z[:, start:start + block].T, z)              # b x p
+    std. `z_cols`/`std_cols` (default: all of `z`/`std`): the columns of Z
+    and std the rows are computed over, the first of them variable
+    `col0` (this rank's block under `var`)."""
+    z_cols = z if z_cols is None else z_cols
+    std_cols = std if std_cols is None else std_cols
+    rows = M._mm(z[:, start:start + block].T, z_cols)         # b x p_loc
     idx = torch.arange(block, device=z.device)
-    rows[idx, start + idx] = 1.0          # the unit-diagonal completion
-    return std[start:start + block, None] * std[None, :] * rows
+    cols = start + idx - col0
+    on = (cols >= 0) & (cols < rows.shape[1])
+    rows[idx[on], cols[on]] = 1.0         # the unit-diagonal completion
+    return std[start:start + block, None] * std_cols[None, :] * rows
 
 
 _DTYPES = {"float32": torch.float32, "float64": torch.float64}
@@ -823,13 +865,15 @@ class Corex:
         resolve=False leaves use_pallas='auto' for a sharded fit that
         resolves it against its own mesh. `plan` (a ShardingPlan, mesh
         fits only) informs moment_strategy='auto' (`pick_fit_strategy`).
-        With `mesh`, each rank takes its row block of the raw X per the
-        plan BEFORE anything else, so neither the raw nor the
-        standardized X ever lies whole on one device: the column
-        statistics come from per-rank sums, and the operand comes out as
+        With `mesh`, each rank takes its block of the raw X per the plan
+        (rows over the sample axes, columns over `var`) BEFORE anything
+        else, so neither the raw nor the standardized X ever lies whole
+        on one device: the column statistics come from per-rank sums over
+        the sample axes (they are per column, so local over `var`; theta
+        is then gathered whole), and the operand comes out as
         `ShardedSamples` (a Gram operand as the sum of the ranks'
-        products, replicated). The native host route of 'empirical' is
-        skipped under a mesh."""
+        products: replicated, or Σ row blocks under `shard_vars`). The
+        native host route of 'empirical' is skipped under a mesh."""
         self._partial_acc = None
         x = self._validate_input(x)
         self.n_samples, self.nv = x.shape
@@ -857,12 +901,16 @@ class Corex:
             S.validate_plan_shapes(plan, strategy, mesh, self.n_samples,
                                    self.nv, self.m, raw_x=True)
             axes = S.sample_axes(mesh, plan)
-            xp, self.theta = P.fit_preprocess(
-                S.shard_rows(x, axes, self._device, self._dt),
+            var = S.var_axis(mesh, plan)
+            xp, theta = P.fit_preprocess(
+                S.shard_block(x, axes, var, self._device, self._dt),
                 pre.gaussianize, pre.missing_values, axes)
-            if axes:
+            whole = M.Split(var=var).all_vars
+            self.theta = P.Theta(mean=whole(theta.mean),
+                                 std=whole(theta.std))
+            if axes or var is not None:
                 xp = M.ShardedSamples(local=xp, n_total=self.n_samples,
-                                      axes=axes)
+                                      axes=axes, p_total=self.nv, var=var)
             return prepare_operand(xp, strategy, cfg.matmul_dtype), cfg, \
                 strategy
         host = self._host_preprocess(x)
@@ -992,8 +1040,11 @@ class Corex:
         annealed fit with the sample rows split over the mesh's ranks per
         `sharding_plan` (a `ShardingPlan`, default: rows over `data`);
         every rank makes this call with the same arguments and ends with
-        the same state, bit for bit. Plans with shard_vars / shard_factors
-        raise NotImplementedError (ROADMAP item 17b).
+        the same state, bit for bit. `ShardingPlan(shard_vars=True)`
+        splits the variables over the mesh's `var` axis (X's columns, W's
+        columns, Σ's rows when the gram strategy is kept) and
+        `shard_factors=True` W's rows over its `model` axis, alone or with
+        the sample axes.
 
         With `n_restarts=k > 1` the fit runs k seeded lanes as one solve
         and keeps the best final TC (`_fit_restart_sweep`); init='spectral'
@@ -1025,7 +1076,8 @@ class Corex:
         plan = None
         if mesh is not None:
             plan = sharding_plan or ShardingPlan()
-            S.reject_unported_plan(plan, "fit")
+            if restarts > 1:
+                check_restart_plan(plan)
             S.check_mesh(mesh, self._device)
             self._mesh_seed = S.shared_seed(self.seed, mesh, self._device)
             if restarts > 1:
@@ -1112,33 +1164,31 @@ class Corex:
             return self.transform(x)
         return self.transform(x, mesh=mesh, sharding_plan=sharding_plan)
 
-    def _serving_rows(self, a, mesh, sharding_plan, what):
-        """Shared first step of the row-wise serving methods. Without a
-        mesh: `a` on the model device, no axes. Under a mesh: the serving
-        layout resolved (`sharding_plan`, else the plan of the last mesh
-        fit or serving call, else rows over `data`), validated by name,
-        remembered, and this rank's row block of `a` on the device.
-        Returns (rows, axes): the fitted state stays replicated under a
-        plan over sample axes, so there is nothing else to place."""
+    def _serving_layout(self, mesh, sharding_plan, n_rows=None):
+        """Resolve, validate and remember the serving plan of a mesh call
+        (`sharding_plan`, else the plan of the last mesh fit or serving
+        call, else rows over `data`). Returns None without a mesh, else
+        (sample axes, Split): the axes this call's rows split over and the
+        `var` / `model` axes of the plan. The fitted state is whole on
+        every rank; each method takes its block of it."""
         if mesh is None:
-            return self._as_tensor(a), ()
-        self._serving_replicated(mesh, sharding_plan, what, a.shape[0])
-        axes = S.sample_axes(mesh, self._serving_plan)
-        return S.shard_rows(a, axes, self._device, self._dt), axes
-
-    def _serving_replicated(self, mesh, sharding_plan, what, n_rows=None):
-        """Resolve, validate and remember the serving plan of a mesh call.
-        It is all the covariance methods need: a plan over sample axes
-        shards none of their operands, so every rank computes the whole
-        result."""
-        if mesh is None:
-            return
+            return None
         plan = sharding_plan or self._serving_plan or ShardingPlan()
-        S.reject_unported_plan(plan, what)
         S.check_mesh(mesh, self._device)
         S.validate_plan_shapes(plan, "samples", mesh, n_rows, self.nv,
                                self.ws.shape[0], raw_x=True)
         self._serving_plan = plan
+        return S.sample_axes(mesh, plan), M.Split(S.var_axis(mesh, plan),
+                                                  S.factor_axis(mesh, plan))
+
+    def _serving_input(self, a, layout, cols=True):
+        """This rank's block of a serving input (rows over the sample
+        axes; columns over `var` when `cols`), on the model device."""
+        if layout is None:
+            return self._as_tensor(a)
+        axes, sp = layout
+        return S.shard_block(a, axes, sp.var if cols else None,
+                             self._device, self._dt)
 
     def _check_fitted(self):
         if self.ws is None or self.moments is None:
@@ -1152,29 +1202,44 @@ class Corex:
         set_output(transform='pandas') the plain return is a DataFrame.
 
         `mesh` (+ optional `sharding_plan`, default: the last mesh fit's,
-        else rows over `data`) splits the rows of `x` over the plan's
-        sample axes: each rank projects its block and the (n, m) result
-        is gathered, whole, onto every rank."""
+        else rows over `data`) splits `x` per the plan: each rank
+        projects its block (its rows over the sample axes, its columns
+        over `var`, W's rows over `model`); the (n_loc, m) partials are
+        summed over `var`, the factor columns gathered over `model` and
+        the rows over the sample axes, so the (n, m) result is whole on
+        every rank."""
         self._check_fitted()
         x_orig = x
         x = self._check_width(x, move=False)
         n = x.shape[0]
-        x, axes = self._serving_rows(x, mesh, sharding_plan, "transform")
+        layout = self._serving_layout(mesh, sharding_plan, n)
+        axes, sp = layout or ((), M.NO_SPLIT)
+        x = self._serving_input(x, layout)
         pre = self.pre_config
         cfg = self.config
+        ws = sp.mine(sp.my_vars(self.ws, -1), -2)
         with M.full_f32_matmul():
-            xp = P.preprocess(x, pre.gaussianize, self.theta,
+            xp = P.preprocess(x, pre.gaussianize, self._theta_block(sp),
                               pre.missing_values, axes)
-            y = all_gather_rows(M._mm(xp, self.ws.T), axes)
+            y = all_gather_rows(sp.all_factors(sp.vsum(M._mm(xp, ws.T))),
+                                axes)
             if not details:
                 return self._maybe_wrap_output(y, x_orig)
             zero = torch.zeros((), dtype=self.ws.dtype, device=x.device)
-            if axes:
-                xp = M.ShardedSamples(local=xp, n_total=n, axes=axes)
-            c_xy = M.cxy_samples(xp, self.ws, zero)
-            mom = M.moments_from_cxy(self.ws, c_xy, cfg.y_scale,
-                                     cfg.rho_clip)
+            if axes or sp.var is not None:
+                xp = M.ShardedSamples(local=xp, n_total=n, axes=axes,
+                                      p_total=self.nv, var=sp.var)
+            c_xy = M.cxy_samples(xp, ws, zero)
+            mom = M.moments_from_cxy(ws, c_xy, cfg.y_scale, cfg.rho_clip,
+                                     *sp)
+            if sp.w_axes:
+                mom = M.whole_moments(mom, *sp)
         return y, mom.asdict()
+
+    def _theta_block(self, sp):
+        """Theta on this rank's variables."""
+        return P.Theta(mean=sp.my_vars(self.theta.mean, -1),
+                       std=sp.my_vars(self.theta.std, -1))
 
     def predict(self, y, mesh=None, sharding_plan=None):
         """Reconstruct variables from factors: the posterior-mean
@@ -1182,7 +1247,10 @@ class Corex:
         the FACTOR matrix (n, m) from `transform` (the reference's
         semantics); `inverse_transform` is the sklearn spelling. Under
         `mesh` the rows of `y` split over the plan's sample axes and the
-        (n, p) reconstruction is gathered onto every rank."""
+        (n, p) reconstruction is gathered onto every rank; under
+        `shard_vars` each rank reconstructs its columns only and the
+        result is a `DTensor` split over the sample axes (rows) and `var`
+        (columns), never gathered: `.full_tensor()` gathers it."""
         self._check_fitted()
         y = self._coerce_2d(y, what="y")
         # the FITTED factor count: set_params(n_hidden=...) after fit must
@@ -1195,15 +1263,23 @@ class Corex:
         if isinstance(y, np.ndarray) and not np.isfinite(y).all():
             raise ValueError(
                 "factor input to predict contains NaN/inf")
-        y, axes = self._serving_rows(y, mesh, sharding_plan, "predict")
+        layout = self._serving_layout(mesh, sharding_plan, y.shape[0])
+        axes, sp = layout or ((), M.NO_SPLIT)
+        y = self._serving_input(y, layout, cols=False)
         mom = self.moments
+        cols = M.Split(var=sp.var)
         with M.full_f32_matmul():
             if self.config.discourage_overlap:
-                out = _predict_ns(y, mom.rhoinvrho, mom.si, mom.z2,
-                                  self.theta)
+                out = _predict_ns(y, cols.my_vars(mom.rhoinvrho, -1),
+                                  cols.my_vars(mom.si, -1), mom.z2,
+                                  self._theta_block(cols))
             else:
-                out = _predict_overlap(y, mom.cy, mom.c_xy, self.theta)
-            return all_gather_rows(out, axes)
+                out = _predict_overlap(y, mom.cy, cols.my_vars(mom.c_xy),
+                                       self._theta_block(cols))
+        if sp.var is not None:
+            return S.as_dtensor(out, mesh, {**{a.name: 0 for a in axes},
+                                            sp.var.name: 1})
+        return all_gather_rows(out, axes)
 
     def inverse_transform(self, y, mesh=None, sharding_plan=None):
         """sklearn spelling of `predict`: factors (n, m) back to the
@@ -1213,8 +1289,19 @@ class Corex:
     def get_covariance(self):
         """Dense p x p factor-model covariance estimate. For large p prefer
         `covariance_matvec`/`matmat`/`blocks`, which never materialize
-        it."""
+        it. Raises by name on var-sharded state (the last mesh fit or
+        serving call had `ShardingPlan(shard_vars=True)`): the dense p x p
+        is the buffer that plan exists to avoid."""
         self._check_fitted()
+        if self._serving_plan is not None and self._serving_plan.shard_vars:
+            raise ValueError(
+                "get_covariance() on var-sharded state (the model was fit "
+                "or served under ShardingPlan(shard_vars=True)): the dense "
+                "p x p export would materialize exactly the buffer the "
+                "plan shards away. Use covariance_blocks(mesh=...) for "
+                "dense row blocks per the plan, or covariance_matvec/"
+                "covariance_matmat(mesh=...) to apply Σ̂ without "
+                "materializing it.")
         mom = self.moments
         with M.full_f32_matmul():
             if self.config.discourage_overlap:
@@ -1227,7 +1314,8 @@ class Corex:
         is ignored). Woodbury on the diagonal-plus-low-rank Σ̂: O(n·p·m),
         the p x p never materializes. Only the affine gaussianize modes
         ('none', 'standard') carry a density back to the data's scale.
-        Under `mesh` each rank scores its row block and the mean is over
+        Under `mesh` each rank scores its block (under `shard_vars` its
+        columns, the sums over p reduced over `var`) and the mean is over
         all rows."""
         del y
         self._check_fitted()
@@ -1238,25 +1326,44 @@ class Corex:
                 "'empirical'/'outliers' transforms are non-affine, so a "
                 "density on the original scale is not defined by Σ̂ alone")
         x = self._check_width(x, move=False)
-        x, axes = self._serving_rows(x, mesh, sharding_plan, "score")
+        layout = self._serving_layout(mesh, sharding_plan, x.shape[0])
+        axes, sp = layout or ((), M.NO_SPLIT)
+        x = self._serving_input(x, layout)
+        cols = M.Split(var=sp.var)
+        theta = self._theta_block(cols)
         with M.full_f32_matmul():
-            xp = P.preprocess(x, pre.gaussianize, self.theta,
-                              pre.missing_values, axes)
-            return _gaussian_ll(xp, self._factor_z(), self.theta.std, axes)
+            xp = P.preprocess(x, pre.gaussianize, theta, pre.missing_values,
+                              axes)
+            return _gaussian_ll(xp, self._factor_z(cols), theta.std, axes,
+                                sp.var)
 
-    def _covariance_apply(self, v):
+    def _covariance_apply(self, v, var=None):
+        """Σ̂·V on this rank's rows of Σ̂ (all of them without `var`)."""
         mom = self.moments
-        v = self._as_tensor(v)
+        sp = M.Split(var=var)
+        v = sp.my_vars(self._as_tensor(v))
+        std = sp.my_vars(self.theta.std, -1)
         with M.full_f32_matmul():
             if self.config.discourage_overlap:
-                return _matmat_ns(mom.rhoinvrho, mom.si, self.theta.std, v)
-            return _matmat_overlap(mom.cy, mom.c_xy, self.theta.std, v)
+                return _matmat_ns(sp.my_vars(mom.rhoinvrho, -1),
+                                  sp.my_vars(mom.si, -1), std, v, var)
+            return _matmat_overlap(mom.cy, sp.my_vars(mom.c_xy), std, v,
+                                   var)
+
+    def _var_split_output(self, out, mesh, layout):
+        """A (p, ...) serving output: a `DTensor` with its rows over `var`
+        under a var plan, else the tensor itself."""
+        if layout is None or layout[1].var is None:
+            return out
+        return S.as_dtensor(out, mesh, {layout[1].var.name: 0})
 
     def covariance_matvec(self, v, mesh=None, sharding_plan=None):
         """Σ̂·v through skinny products (the p x p never forms); equal to
-        `get_covariance() @ v` to rounding on both solver paths."""
+        `get_covariance() @ v` to rounding on both solver paths. Under a
+        var plan each rank computes its rows, returned as a `DTensor`
+        split over `var`."""
         self._check_fitted()
-        self._serving_replicated(mesh, sharding_plan, "covariance_matvec")
+        layout = self._serving_layout(mesh, sharding_plan)
         if not hasattr(v, "ndim"):
             v = np.asarray(v)
         if v.ndim != 1 or v.shape[0] != self.nv:
@@ -1264,49 +1371,64 @@ class Corex:
                 f"v must be 1-D with {self.nv} entries (the fitted "
                 f"n_variables); got shape {tuple(v.shape)} — use "
                 f"covariance_matmat for (p, k) blocks")
-        return self._covariance_apply(v[:, None])[:, 0]
+        out = self._covariance_apply(v[:, None], layout and layout[1].var)
+        return self._var_split_output(out[:, 0], mesh, layout)
 
     def covariance_matmat(self, v, mesh=None, sharding_plan=None):
         """Σ̂·V for a (p, k) block of vectors in one pass of skinny
-        products."""
+        products (a `DTensor` of this rank's rows under a var plan)."""
         self._check_fitted()
-        self._serving_replicated(mesh, sharding_plan, "covariance_matmat")
+        layout = self._serving_layout(mesh, sharding_plan)
         if not hasattr(v, "ndim"):
             v = np.asarray(v)
         if v.ndim != 2 or v.shape[0] != self.nv:
             raise ValueError(
                 f"v must be 2-D with {self.nv} rows (the fitted "
                 f"n_variables); got shape {tuple(v.shape)}")
-        return self._covariance_apply(v)
+        out = self._covariance_apply(v, layout and layout[1].var)
+        return self._var_split_output(out, mesh, layout)
 
-    def _factor_z(self):
+    def _factor_z(self, sp=M.NO_SPLIT):
         """The covariance factorization Z (m x p) of either solver path:
-        Σ̂_std has off-diagonal ZᵀZ and unit diagonal."""
+        Σ̂_std has off-diagonal ZᵀZ and unit diagonal. Its columns on this
+        rank's variables under `sp.var`."""
         mom = self.moments
         if self.config.discourage_overlap:
-            return _factor_z_ns(mom.rhoinvrho, mom.si)
-        return _factor_z_overlap(mom.cy, mom.c_xy)
+            return _factor_z_ns(sp.my_vars(mom.rhoinvrho, -1),
+                                sp.my_vars(mom.si, -1))
+        return _factor_z_overlap(mom.cy, sp.my_vars(mom.c_xy))
 
     def covariance_blocks(self, block_size: int = 4096, mesh=None,
                           sharding_plan=None):
         """Yield `(start, rows)` dense row blocks of `get_covariance()`,
         in order over [0, p), without forming the p x p matrix; `rows` has
         shape (min(block_size, p - start), p). Every block is computed at
-        one size (the last as the tail of a full block)."""
+        one size (the last as the tail of a full block). Under a var plan
+        each rank computes its columns of every block, yielded as a
+        `DTensor` split over `var` (equal to the single-device block bit
+        for bit: the contraction over m is never split)."""
         self._check_fitted()
-        self._serving_replicated(mesh, sharding_plan, "covariance_blocks")
+        layout = self._serving_layout(mesh, sharding_plan)
         if block_size < 1:
             raise ValueError(f"block_size must be >= 1, got {block_size}")
         p = self.nv
         b = min(block_size, p)
+        cols = M.Split(var=layout and layout[1].var)
         with M.full_f32_matmul():
             z = self._factor_z()
+            z_cols = self._factor_z(cols) if cols.var else z
+        std_cols = cols.my_vars(self.theta.std, -1)
+        col0 = cols.var.index * z_cols.shape[1] if cols.var else 0
         start = 0
         while start < p:
             s = min(start, p - b)
             with M.full_f32_matmul():
-                rows = _cov_rows(z, self.theta.std, s, b)
-            yield start, rows[start - s:]
+                rows = _cov_rows(z, self.theta.std, s, b, z_cols, std_cols,
+                                 col0)
+            tail = rows[start - s:]
+            if cols.var is not None:
+                tail = S.as_dtensor(tail, mesh, {cols.var.name: 1})
+            yield start, tail
             start = s + b
 
     @property

@@ -41,6 +41,43 @@ computes its partial product from the local rows and sums it over those
 axes (`parallel.collectives.all_reduce`), dividing by the TOTAL row
 count. Everything after that sum is replicated arithmetic on every rank,
 so the chain kernel runs unchanged on each rank's full C_xy.
+
+Variable and factor sharding
+----------------------------
+The same operand type carries a column split: under a `var` axis the
+rank holds X[rows, I] (I its block of the p variables) and W[:, I], and a
+Gram operand holds Σ's row block Σ[I, :] (`gram=True`). W's rows may be
+split over a `model` axis (J, its block of the m factors): that axis
+belongs to W, not to the data, so the functions take it as their own
+argument (`model=`). `Split` carries both for the moment algebra; with
+neither it is the identity and every function runs the single-device
+operations unchanged.
+
+- Σ-application, samples operand: X_loc·v_loc is (n_loc, k), summed over
+  `var`; X_locᵀ·(that) gives this rank's (p_loc, k) rows, summed over the
+  sample axes. The factor split needs nothing: Σ·W_Jᵀ is local.
+- Σ-application, Gram operand: Σ[I, :] needs every column of v, so v
+  (p_loc, k) is all-gathered over `var` into (p, k): (p − p_loc)·k values
+  received per application, m·p per objective evaluation on the fixed
+  point. (Forming Σ[:, I]·v_I and reduce-scattering it would move as much
+  and needs Σ's columns, which a row block holds only through Σ's
+  symmetry, and symmetric to the last bit only by luck.) The gradient
+  path's AA·Σ runs the other way: the partial AA[:, I]·Σ[I, :] (m, p) is
+  reduce-scattered over `var`, m·p values again.
+- Sums over p (C_y = W·C_xy, H, κ, μ, the TCs, Σ log v) are local sums
+  and one SUM `all_reduce` over `var`; sums over m (S_i, Q_i) one SUM of a
+  (p_loc,) vector over `model`. The m-wide couplings (C_y, ry, qij =
+  ry·rhoinvrho, H, the m x m inverse) need every factor: C_xy's columns
+  are all-gathered over `model` once per evaluation (m·p_loc values),
+  rho and rhoinvrho of every factor follow from it elementwise, and this
+  rank computes the rows J of the products (gathered into the replicated
+  m x m blocks). The fixed point's target rows J take AA of every factor:
+  one more m·p_loc gather. No payload exceeds max(n·m, m·p) values.
+- int8: column scales are maxima over `var`; the first product's int32
+  partials are summed over `var` as int32, exactly, so the sharded
+  Σ-application is bitwise the single-device one.
+- The chain kernel (`chain_kernel=True`) takes the whole (p, m) C_xy: it
+  is gathered over both axes and each rank keeps its block of the outputs.
 """
 
 from __future__ import annotations
@@ -48,13 +85,16 @@ from __future__ import annotations
 import contextlib
 import functools
 import warnings
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
-from linearcorex_tpu_torch.parallel.collectives import (all_reduce,
+from linearcorex_tpu_torch.parallel.collectives import (all_gather_dim,
+                                                        all_reduce,
+                                                        reduce_scatter_dim,
+                                                        ring_pass,
                                                         shard_index)
 
 _F32 = torch.float32
@@ -125,19 +165,32 @@ class QuantizedData(NamedTuple):
 
 
 class ShardedSamples(NamedTuple):
-    """Sample-sharded X: this rank's row block (a tensor, its bf16 cast or
-    its `QuantizedData`), the row count of the whole X and the mesh axes
-    (`parallel.collectives.Axis`) the rows are split over, outermost
-    first. Sums over samples reduce over `axes`, innermost first."""
+    """A sharded fit operand: this rank's block (a tensor, its bf16 cast or
+    its `QuantizedData`), the row count of the whole operand, the mesh
+    axes (`parallel.collectives.Axis`) its sample rows are split over,
+    outermost first (sums over samples reduce over them, innermost first),
+    and under variable sharding the column count of the whole operand and
+    the `var` axis its columns are split over. A Gram operand (`gram`)
+    carries no sample axis: `local` is Σ's row block over `var` and
+    `n_total` is p."""
 
-    local: object         # torch.Tensor | QuantizedData, (n_total/d, p)
+    local: object         # torch.Tensor | QuantizedData, (n_total/d, p_loc)
     n_total: int
     axes: tuple
+    p_total: Optional[int] = None   # None: every column is local
+    var: object = None    # Axis of the column (Gram: row) split, or None
+    gram: bool = False
 
     @property
     def reduce_axes(self):
         """The axes in reduce order: innermost (`data`) first."""
         return tuple(reversed(self.axes))
+
+    @property
+    def all_axes(self):
+        """Every axis the operand is split over: a whole-tensor maximum
+        (the int8 scale) reduces over all of them."""
+        return self.reduce_axes + ((self.var,) if self.var else ())
 
 
 def _unsharded(data):
@@ -147,6 +200,75 @@ def _unsharded(data):
         return data.local, data.n_total, data.reduce_axes
     rows = data.q if isinstance(data, QuantizedData) else data
     return data, rows.shape[0], ()
+
+
+def var_of(data):
+    """The `var` axis an operand's columns (a Gram operand's rows) are
+    split over, or None."""
+    return data.var if isinstance(data, ShardedSamples) else None
+
+
+def n_cols(data) -> int:
+    """Variable count of an operand (the whole operand's, when sharded)."""
+    if isinstance(data, ShardedSamples) and data.p_total:
+        return data.p_total
+    local = _unsharded(data)[0]
+    return (local.q if isinstance(local, QuantizedData) else local).shape[-1]
+
+
+class Split(NamedTuple):
+    """How W (m, p) lies on this rank: its columns split over `var`, its
+    rows over `model` (each a `parallel.collectives.Axis`, or None: not
+    split). Sums over p reduce over `var` and sums over m over `model`;
+    with neither axis every method is the identity, so the moment
+    functions run the single-device operations unchanged."""
+
+    var: object = None
+    model: object = None
+
+    @property
+    def w_axes(self):
+        """The axes W is split over."""
+        return tuple(a for a in (self.var, self.model) if a is not None)
+
+    def vsum(self, t):
+        """A sum over p: the local partial summed over `var`."""
+        return t if self.var is None else all_reduce(t, (self.var,))
+
+    def msum(self, t):
+        """A sum over m: the local partial summed over `model`."""
+        return t if self.model is None else all_reduce(t, (self.model,))
+
+    @staticmethod
+    def _block(t, axis, dim):
+        if axis is None:
+            return t
+        k = t.shape[dim] // axis.size
+        return t.narrow(dim, axis.index * k, k)
+
+    def mine(self, t, dim=-1):
+        """This rank's factor block J of a dimension holding all m."""
+        return self._block(t, self.model, dim)
+
+    def my_vars(self, t, dim=0):
+        """This rank's variable block I of a dimension holding all p."""
+        return self._block(t, self.var, dim)
+
+    def all_factors(self, t, dim=-1):
+        """A dimension split over `model`, gathered whole."""
+        return t if self.model is None else all_gather_dim(t, dim,
+                                                           self.model)
+
+    def all_vars(self, t, dim=0):
+        """A dimension split over `var`, gathered whole."""
+        return t if self.var is None else all_gather_dim(t, dim, self.var)
+
+    def whole_w(self, w):
+        """W (m, p) from this rank's block."""
+        return self.all_vars(self.all_factors(w, -2), -1)
+
+
+NO_SPLIT = Split()
 
 
 def is_quantized(data) -> bool:
@@ -195,18 +317,20 @@ def _int8_mm(a, b):
     return torch._int_mm(a, bt.T)[:m_, :n_]
 
 
-def _int8_abs_sum_bound(q, axes=()) -> float:
+def _int8_abs_sum_bound(q, axes=(), col_axes=()) -> float:
     """Guaranteed-safe int32 accumulation certificate: every contraction
     the int8 paths run (q·vq over axis 1, qᵀ·tq over axis 0, both against
     |operand| ≤ 127) is bounded in magnitude by 127 · max(row |q| sums,
     col |q| sums). If that is ≤ int32 max, no application vector can wrap.
-    The sums are exact (int64). Rows split over `axes`: a column's sum
-    adds the ranks' sums, the largest row sum is the largest of any
-    rank's."""
+    The sums are exact (int64). Rows split over `axes` (columns over
+    `col_axes`): a column's (row's) sum adds the ranks' sums, and the
+    largest is the largest of any rank's."""
     a = torch.abs(q).to(torch.int64)
     cols = all_reduce(torch.sum(a, dim=0), axes)
-    rows = all_reduce(torch.amax(torch.sum(a, dim=1)), axes, op="max")
-    return 127.0 * float(torch.maximum(torch.amax(cols), rows))
+    rows = all_reduce(torch.amax(all_reduce(torch.sum(a, dim=1), col_axes)),
+                      axes, op="max")
+    cols = all_reduce(torch.amax(cols), col_axes, op="max")
+    return 127.0 * float(torch.maximum(cols, rows))
 
 
 def _wrap32(r64):
@@ -214,7 +338,8 @@ def _wrap32(r64):
     return ((r64 + 2 ** 31) % 2 ** 32 - 2 ** 31).to(torch.int32)
 
 
-def _int8_wrap_probe(q, u, axes=(), row_start: int = 0) -> float:
+def _int8_wrap_probe(q, u, axes=(), row_start: int = 0, col_axes=(),
+                     col_start: int = 0) -> float:
     """Max relative disagreement between int32 and float32 accumulation of
     the same int8 operands over both contraction axes. A wrap shows as an
     O(1) relative error; float32 rounding is ~1e-6.
@@ -223,32 +348,35 @@ def _int8_wrap_probe(q, u, axes=(), row_start: int = 0) -> float:
     iteration step, v = qᵀ·u), which model the solver's late-fit operands
     (the columns of Wᵀ/AAᵀ align with the data's principal structure).
 
-    With the rows split over `axes` (`q` the local block, `row_start` its
-    first row in the whole operand) the products are the whole operand's:
-    the row-wise one is local, the one contracted over samples sums the
-    ranks' partials, the int32 one as the 32-bit accumulator of a single
-    device would hold it."""
+    With the rows split over `axes` and the columns over `col_axes` (`q`
+    the local block, `row_start` / `col_start` its first row / column in
+    the whole operand) the products are the whole operand's: each
+    contraction sums the ranks' partials, the int32 one as the 32-bit
+    accumulator of a single device would hold it."""
+    everywhere = tuple(axes) + tuple(col_axes)
+
     def err(r32, rf):
-        num = all_reduce(torch.amax(torch.abs(r32.to(_F32) - rf)), axes,
-                         op="max")
-        den = all_reduce(torch.amax(torch.abs(rf)), axes, op="max")
+        num = all_reduce(torch.amax(torch.abs(r32.to(_F32) - rf)),
+                         everywhere, op="max")
+        den = all_reduce(torch.amax(torch.abs(rf)), everywhere, op="max")
         return num / torch.clamp(den, min=1.0)
+
+    def exact(r32, over):
+        if not over:
+            return r32
+        return _wrap32(all_reduce(r32.to(torch.int64), over))
 
     with full_f32_matmul():
         qf = q.to(_F32)
         rows = slice(row_start, row_start + q.shape[0])
-        v = torch.cat([u[:q.shape[1]], all_reduce(qf.T @ u[rows], axes)],
-                      dim=1)
-        vq, _ = _quant_cols(v)
-        t = qf @ vq.to(_F32)
+        cols = slice(col_start, col_start + q.shape[1])
+        v = torch.cat([u[cols], all_reduce(qf.T @ u[rows], axes)], dim=1)
+        vq, _ = _quant_cols(v, col_axes)
+        t = all_reduce(qf @ vq.to(_F32), col_axes)
         tq, _ = _quant_cols(t, axes)
-        e_rows = err(_int8_mm(q, vq), torch.matmul(qf, vq.to(_F32)))
-        r32 = _int8_mm(q.T, tq)
-        if axes:
-            r32 = _wrap32(all_reduce(r32.to(torch.int64), axes))
+        e_rows = err(exact(_int8_mm(q, vq), col_axes), t)
         rf = all_reduce(torch.matmul(qf.T, tq.to(_F32)), axes)
-        e_cols = torch.amax(torch.abs(r32.to(_F32) - rf)) / torch.clamp(
-            torch.amax(torch.abs(rf)), min=1.0)
+        e_cols = err(exact(_int8_mm(q.T, tq), axes), rf)
         return float(torch.maximum(e_rows, e_cols))
 
 
@@ -257,19 +385,26 @@ def _check_int8_wrap(qd) -> None:
     `QuantizedData`). The certificate first; only when it fails, a probe
     of the actual int8 products with seeded random and data-aligned
     vectors: raise on a demonstrated wrap, warn on a merely possible
-    one. A `ShardedSamples` operand is guarded as the whole X it is a
-    block of: every rank reaches the same verdict."""
+    one. A `ShardedSamples` operand is guarded as the whole operand it is
+    a block of: every rank reaches the same verdict."""
+    var = var_of(qd)
+    gram = isinstance(qd, ShardedSamples) and qd.gram
+    p_total = n_cols(qd)
     qd, n_total, axes = _unsharded(qd)
     q = qd.q
     if q.ndim != 2:
         return
-    bound = _int8_abs_sum_bound(q, axes)
+    # rows and columns split over: a Gram block's rows are over `var`
+    row_axes, col_axes = ((var,), ()) if gram else (
+        axes, (var,) if var else ())
+    bound = _int8_abs_sum_bound(q, row_axes, col_axes)
     if bound <= _INT32_MAX:
         return
     u = torch.as_tensor(np.random.RandomState(0).normal(
-        size=(max(n_total, q.shape[1]), 4)), dtype=_F32, device=q.device)
-    row_start = shard_index(axes[::-1]) * q.shape[0]
-    err = _int8_wrap_probe(q, u, axes, row_start)
+        size=(max(n_total, p_total), 4)), dtype=_F32, device=q.device)
+    row_start = shard_index(row_axes[::-1]) * q.shape[0]
+    col_start = shard_index(col_axes) * q.shape[1]
+    err = _int8_wrap_probe(q, u, row_axes, row_start, col_axes, col_start)
     if err > 0.1:
         raise ValueError(
             f"int8 accumulation overflow: the quantized operand wraps the "
@@ -312,9 +447,9 @@ def quantize_samples(x, check_overflow: bool = True):
     Gram matrix, see `quantize_gram`) to int8 with one global scale.
     check_overflow=True (default) runs the int32 wrap guard
     (`_check_int8_wrap`). A `ShardedSamples` operand comes back sharded
-    alike, quantized with the scale of the whole X."""
+    alike, quantized with the scale of the whole operand."""
     if isinstance(x, ShardedSamples):
-        q, s = _quantize(x.local, x.reduce_axes)
+        q, s = _quantize(x.local, x.all_axes)
         qd = x._replace(local=QuantizedData(q=q, scale=s))
     else:
         q, s = _quantize(x)
@@ -351,19 +486,28 @@ def _apply_sigma_int8(qd, v):
     Sample-sharded, the result is bitwise the single-device one: the
     first product's rows are local, the column maxima of the intermediate
     are taken over all ranks, and the second product's int32 partials add
-    exactly."""
+    exactly. So is the variable-sharded one: v's column maxima are taken
+    over `var`, and the first product's int32 partials are summed over
+    `var` before they become float32."""
+    sp = Split(var=var_of(qd))
     qd, n, axes = _unsharded(qd)
-    vq, sv = _quant_cols(v)
-    t = _int8_mm(qd.q, vq).to(_F32) * (qd.scale * sv)[None, :]
+    vq, sv = _quant_cols(v, sp.w_axes)
+    t = sp.vsum(_int8_mm(qd.q, vq)).to(_F32) * (qd.scale * sv)[None, :]
     tq, st = _quant_cols(t, axes)
     r = all_reduce(_int8_mm(qd.q.T, tq), axes)
     return r.to(_F32) * (qd.scale * st)[None, :] / n
 
 
-def _apply_gram_int8(qd: QuantizedData, v):
-    """v (p, k) float32 ↦ Σ·v through one int8 product (Gram operand)."""
-    vq, sv = _quant_cols(v)
-    return _int8_mm(qd.q, vq).to(_F32) * (qd.scale * sv)[None, :]
+def _apply_gram_int8(qd, v):
+    """v (p, k) float32 ↦ Σ·v through one int8 product (Gram operand). A
+    row block Σ[I, :] over `var` takes v's rows I, quantizes them with
+    the column maxima over `var` and gathers the int8 columns whole: the
+    rows I of the single-device product, bit for bit."""
+    sp = Split(var=var_of(qd))
+    qd = _unsharded(qd)[0]
+    vq, sv = _quant_cols(v, sp.w_axes)
+    return _int8_mm(qd.q, sp.all_vars(vq)).to(_F32) \
+        * (qd.scale * sv)[None, :]
 
 
 def _apply_int8(qd, v, gram: bool):
@@ -442,69 +586,141 @@ def _lane_rows(fn, a):
     return fn(a.reshape(k * m, p)).reshape(k, m, -1)
 
 
+def _gram_t(g, var):
+    """v (p_loc, k) ↦ Σ[I, :]·v for a Gram block over `var` (v's rows
+    gathered whole), or Σ·v for a whole Σ."""
+    sp = Split(var=var)
+    return lambda v, mm=_mm: mm(g, sp.all_vars(v))
+
+
+def _gram_rows(g, var):
+    """a (r, p_loc) ↦ (a·Σ)[:, I] for a Gram block over `var`: this rank's
+    partial a[:, I]·Σ[I, :] (r, p), summed over `var` with each rank
+    keeping its columns (one reduce-scatter, r·p values); else a·Σ. The
+    product is the single-device GEMM where the block is all of Σ."""
+    if var is None:
+        return lambda a, mm=_mm: mm(a, g)
+    return lambda a, mm=_mm: reduce_scatter_dim(mm(a, g), -1, var)
+
+
 def cxy_samples(x, ws, eps):
     """C_xy = Xᵀ(X·Wᵀ)/n, annealed; the p x p covariance is never
     formed. A QuantizedData operand is dequantized here (the one-time
-    exact path: final moments)."""
+    exact path: final moments). Variable-sharded: this rank's rows."""
+    vs = Split(var=var_of(x)).vsum
     x, n, axes = _unsharded(x)
     x = _dequantized(x)
-    c_xy = _lanes(lambda v: all_reduce(_mm(x.T, _mm(x, v)), axes) / n,
+    c_xy = _lanes(lambda v: all_reduce(_mm(x.T, vs(_mm(x, v))), axes) / n,
                   ws.mT)                                         # p x m
     return _anneal(c_xy, ws.mT, eps)
 
 
 def cxy_gram(gram, ws, eps):
     """C_xy = Σ·Wᵀ, annealed: one O(p²·m) GEMM against the precomputed
-    Gram matrix. A QuantizedData operand is dequantized here."""
-    gram = _dequantized(gram)
-    return _anneal(_lanes(lambda v: _mm(gram, v), ws.mT), ws.mT, eps)
+    Gram matrix (a row block: this rank's rows). A QuantizedData operand
+    is dequantized here."""
+    apply = _gram_t(_dequantized(_unsharded(gram)[0]), var_of(gram))
+    return _anneal(_lanes(apply, ws.mT), ws.mT, eps)
 
 
 def compute_gram(x):
     """Σ = XᵀX/n, once per fit, at full float32 (never TF32). From a
-    `ShardedSamples` X: the ranks' products summed, Σ replicated."""
-    x, n, axes = _unsharded(x)
+    `ShardedSamples` X: the ranks' products summed over the sample axes.
+    Without a `var` axis Σ comes out whole on every rank.
+
+    With X's columns split over `var`, no rank ever holds the whole X or
+    the whole Σ: the result is this rank's row block Σ[I, :] = X[:, I]ᵀ·X
+    /n as a Gram `ShardedSamples`. The other ranks' column blocks come one
+    at a time around a ring over `var` (`ring_pass`), each multiplied into
+    its columns of the block. Peak bytes per rank: its X block (n_loc ·
+    p_loc), two blocks in flight (2 · n_loc · p_loc), the (p_loc, p) row
+    block and one (p_loc, p_loc) product, times the element size."""
+    var = var_of(x)
+    xl, n, axes = _unsharded(x)
     with full_f32_matmul():
-        return all_reduce(_mm(x.T, x), axes) / n
+        if var is None:
+            return all_reduce(_mm(xl.T, xl), axes) / n
+        width = xl.shape[1]
+        rows = xl.new_empty((width, width * var.size))
+        blk = xl
+        for step in range(var.size):
+            j = (var.index - step) % var.size
+            rows[:, j * width:(j + 1) * width] = _mm(xl.T, blk)
+            if step + 1 < var.size:
+                blk = ring_pass(blk, var)
+        p = width * var.size
+        return ShardedSamples(local=all_reduce(rows, axes) / n, n_total=p,
+                              axes=(), p_total=p, var=var, gram=True)
 
 
-def _cy_ry(ws, c_xy, y_scale):
+def _cy_ry(ws, c_all, y_scale, sp=NO_SPLIT):
     """cov(y) = W·C_xy + y_scale²·I, its diagonal z2, sqrt(z2) and the
-    correlation ry."""
-    m = ws.shape[-2]
-    cy = _mm(ws, c_xy) + (y_scale ** 2) * torch.eye(
-        m, dtype=ws.dtype, device=ws.device)
+    correlation ry, all whole. `c_all` holds every factor's column of this
+    rank's rows of C_xy; under a split the rows J of W·C_xy are summed over
+    `var` and gathered over `model`."""
+    m = c_all.shape[-1]
+    cy = sp.all_factors(sp.vsum(_mm(ws, c_all)), -2) + (y_scale ** 2) \
+        * torch.eye(m, dtype=ws.dtype, device=ws.device)
     z2 = torch.diagonal(cy, dim1=-2, dim2=-1)
     sqz = torch.sqrt(z2)
     ry = cy / (sqz[..., :, None] * sqz[..., None, :])
     return cy, z2, sqz, ry
 
 
-def moments_from_cxy(ws, c_xy, y_scale: float, rho_clip: float) -> Moments:
-    """All second-moment quantities plus TC/MI given C_xy."""
+def moments_from_cxy(ws, c_xy, y_scale: float, rho_clip: float, var=None,
+                     model=None) -> Moments:
+    """All second-moment quantities plus TC/MI given C_xy. Under a split
+    (W's columns over `var`, its rows over `model`) `ws` and `c_xy` are
+    this rank's blocks and so are the per-variable and per-factor fields
+    of the result; cy, z2, ry, i_y_x, tcs, tc and the objective are whole
+    (`whole_moments` gathers the rest)."""
+    return _moment_parts(ws, c_xy, y_scale, rho_clip, Split(var, model))[0]
+
+
+def _moment_parts(ws, c_xy, y_scale, rho_clip, sp=NO_SPLIT):
+    """`moments_from_cxy`, plus rho and rhoinvrho of every factor on this
+    rank's variables (the m-wide products take them)."""
     dt = ws.dtype
-    cy, z2, sqz, ry = _cy_ry(ws, c_xy, y_scale)
-    rho = (c_xy / sqz[..., None, :]).mT
-    rho = torch.clamp(rho, -rho_clip, rho_clip)
-    invrho = 1.0 / (1.0 - rho ** 2)
-    rhoinvrho = rho * invrho
-    qij = _mm(ry, rhoinvrho)
-    si = torch.sum(rho * rhoinvrho, dim=-2)
-    qi = torch.sum(rhoinvrho * qij, dim=-2)
+    c_all = sp.all_factors(c_xy)
+    cy, z2, sqz, ry = _cy_ry(ws, c_all, y_scale, sp)
+    rho_all = torch.clamp((c_all / sqz[..., None, :]).mT, -rho_clip,
+                          rho_clip)
+    invrho_all = 1.0 / (1.0 - rho_all ** 2)
+    rr_all = rho_all * invrho_all
+    rho, invrho, rhoinvrho = (sp.mine(t, -2)
+                              for t in (rho_all, invrho_all, rr_all))
+    qij = _mm(sp.mine(ry, -2), rr_all)
+    si = sp.msum(torch.sum(rho * rhoinvrho, dim=-2))
+    qi = sp.msum(torch.sum(rhoinvrho * qij, dim=-2))
     # <x_i^2|Y>: mean squared residual of the product-of-experts
     # reconstruction, (1 + Q_i − S_i²)/(1 + S_i)².
     vi = (1.0 + qi - si ** 2) / (1.0 + si) ** 2
     mi = -0.5 * torch.log1p(-rho ** 2)
     i_y_x = 0.5 * torch.log(z2) - torch.log(
         torch.tensor(y_scale, dtype=dt, device=ws.device))
-    tcs = torch.sum(mi, dim=-1) - i_y_x
+    tcs = sp.all_factors(sp.vsum(torch.sum(mi, dim=-1)) - sp.mine(i_y_x))
     tc = torch.sum(tcs, dim=-1)
-    objective = 0.5 * torch.sum(torch.log(torch.clamp(vi, min=1e-30)),
-                                dim=-1) \
-        + 0.5 * torch.sum(torch.log(z2), dim=-1)
-    return Moments(c_xy=c_xy, cy=cy, z2=z2, ry=ry, rho=rho, invrho=invrho,
-                   rhoinvrho=rhoinvrho, qij=qij, si=si, qi=qi, vi=vi, mi=mi,
-                   i_y_x=i_y_x, tcs=tcs, tc=tc, objective=objective)
+    objective = 0.5 * sp.vsum(torch.sum(torch.log(torch.clamp(
+        vi, min=1e-30)), dim=-1)) + 0.5 * torch.sum(torch.log(z2), dim=-1)
+    mom = Moments(c_xy=c_xy, cy=cy, z2=z2, ry=ry, rho=rho, invrho=invrho,
+                  rhoinvrho=rhoinvrho, qij=qij, si=si, qi=qi, vi=vi, mi=mi,
+                  i_y_x=i_y_x, tcs=tcs, tc=tc, objective=objective)
+    return mom, rho_all, rr_all
+
+
+def whole_moments(mom: Moments, var=None, model=None) -> Moments:
+    """The whole Moments from this rank's blocks (`moments_from_cxy` under
+    a split): one gather of each (p, m), (m, p) and (p,) field."""
+    sp = Split(var, model)
+
+    def mp(t):
+        return sp.all_vars(sp.all_factors(t, -2), -1)
+
+    return mom._replace(
+        c_xy=sp.all_vars(sp.all_factors(mom.c_xy, -1), -2),
+        rho=mp(mom.rho), invrho=mp(mom.invrho), rhoinvrho=mp(mom.rhoinvrho),
+        qij=mp(mom.qij), mi=mp(mom.mi), si=sp.all_vars(mom.si, -1),
+        qi=sp.all_vars(mom.qi, -1), vi=sp.all_vars(mom.vi, -1))
 
 
 def permute_moments(mom: Moments, order) -> Moments:
@@ -536,20 +752,24 @@ def reconstruction_weights(mom: Moments):
             / torch.sqrt(mom.z2)[..., None, :])
 
 
-def _ns_gradient_terms(mom: Moments):
+def _ns_gradient_terms(mom: Moments, sp=NO_SPLIT, rr_all=None):
     """Shared algebra of the non-overlap gradient. Returns (AA, H, coef,
-    sqz) with sqrt(z2)·∂F/∂W = AA·Σ_eff + H·rho − coef[:,None]·rho."""
+    sqz) with sqrt(z2)·∂F/∂W = AA·Σ_eff + H·rho − coef[:,None]·rho. Under
+    a split AA is this rank's block, H whole, coef and sqz this rank's
+    factors; `rr_all` is rhoinvrho of every factor (`_moment_parts`)."""
     rho, invrho, rr = mom.rho, mom.invrho, mom.rhoinvrho
+    rr_all = rr if rr_all is None else rr_all
     alpha = 1.0 / (1.0 + mom.qi - mom.si ** 2)
     beta = 1.0 / (1.0 + mom.si)
     h_fac = (1.0 + rho ** 2) * invrho ** 2
     aa = alpha[..., None, :] * h_fac * mom.qij \
         - 2.0 * (alpha * mom.si + beta)[..., None, :] * rho * invrho ** 2
-    hmat = _mm(rr * alpha[..., None, :], rr.mT)
-    kappa = torch.sum(aa * rho, dim=-1)
-    mu = torch.sum(alpha[..., None, :] * rr * mom.qij, dim=-1)
+    hmat = sp.all_factors(sp.vsum(_mm(rr * alpha[..., None, :],
+                                      rr_all.mT)), -2)
+    kappa = sp.vsum(torch.sum(aa * rho, dim=-1))
+    mu = sp.vsum(torch.sum(alpha[..., None, :] * rr * mom.qij, dim=-1))
     coef = kappa + mu - 1.0
-    return aa, hmat, coef, torch.sqrt(mom.z2)
+    return aa, hmat, coef, sp.mine(torch.sqrt(mom.z2))
 
 
 def _cxy_eff(data, ws, eps, bf16, gram):
@@ -562,26 +782,35 @@ def _cxy_eff(data, ws, eps, bf16, gram):
 
 def _apply_sigma_t(data, bf16, gram, dtype):
     """v (p, k) ↦ Σ_emp·v for the operand mode (un-annealed; callers
-    blend eps themselves and lay lanes side by side with `_lanes`)."""
+    blend eps themselves and lay lanes side by side with `_lanes`). Under
+    `var`, v and the result are this rank's rows."""
     if is_quantized(data):
         return lambda v: _apply_int8(data, v, gram).to(dtype)
-    if gram:
-        if bf16:
-            return lambda v: _mm_bf16(data, v, dtype)
-        return lambda v: _mm(data, v)
+    var = var_of(data)
     x, n, axes = _unsharded(data)
+    if gram:
+        apply = _gram_t(x, var)
+        if bf16:
+            return lambda v: apply(
+                v, lambda a, b: _mm_bf16(a, b, dtype))
+        return apply
+    vs = Split(var=var).vsum
     if bf16:
         return lambda v: all_reduce(
-            _mm_bf16(x.T, _mm_bf16(x, v, dtype), dtype), axes) / n
-    return lambda v: all_reduce(_mm(x.T, _mm(x, v)), axes) / n
+            _mm_bf16(x.T, vs(_mm_bf16(x, v, dtype)), dtype), axes) / n
+    return lambda v: all_reduce(_mm(x.T, vs(_mm(x, v))), axes) / n
 
 
-def _run_chain(ws, c_xy, y_scale, rho_clip):
+def _run_chain(ws, c_xy, y_scale, rho_clip, sp=NO_SPLIT):
     """Shared prologue + fused chain call: cov(y) from C_xy, then the
-    chain kernel. Returns (dt, z2, sqz, chain outputs...)."""
-    _, z2, sqz, ry = _cy_ry(ws, c_xy, y_scale)
-    return ws.dtype, z2, sqz, ns_chain(c_xy.contiguous(), ry.contiguous(),
-                                       sqz.contiguous(), rho_clip)
+    chain kernel on the whole C_xy (under a split, gathered over `model`
+    and `var` first). Returns (dt, z2, sqz, chain outputs, C_xy's rows of
+    this rank with every factor)."""
+    c_all = sp.all_factors(c_xy)
+    _, z2, sqz, ry = _cy_ry(ws, c_all, y_scale, sp)
+    whole = sp.all_vars(c_all)
+    return ws.dtype, z2, sqz, ns_chain(whole.contiguous(), ry.contiguous(),
+                                       sqz.contiguous(), rho_clip), c_all
 
 
 def _chain_obj_tc(dt, z2, sum_log_vi, mi_sums, y_scale):
@@ -594,71 +823,80 @@ def _chain_obj_tc(dt, z2, sum_log_vi, mi_sums, y_scale):
     return objective, tc
 
 
-def _ns_obj_grad_chain(ws, c_xy, apply_sigma_t, eps, y_scale, rho_clip):
+def _ns_obj_grad_chain(ws, c_xy, apply_sigma_t, eps, y_scale, rho_clip,
+                       sp=NO_SPLIT):
     """Objective/gradient through the fused chain kernel. Works in (p, m)
     layout end to end; `apply_sigma_t(v)` maps a (p, m) matrix to
-    Σ_emp·v and the eps blend is applied here."""
-    dt, z2, sqz, (aa_t, hmat, kappa, mu, mi_sums, sum_log_vi) = _run_chain(
-        ws, c_xy, y_scale, rho_clip)
-    aa_t = aa_t.to(dt)
-    coef = (kappa + mu - 1.0).to(dt)
+    Σ_emp·v and the eps blend is applied here. Under a split the gradient
+    is this rank's block."""
+    dt, z2, sqz, (aa_t, hmat, kappa, mu, mi_sums, sum_log_vi), c_all = \
+        _run_chain(ws, c_xy, y_scale, rho_clip, sp)
+    aa_t = sp.mine(sp.my_vars(aa_t.to(dt)))
+    coef = sp.mine((kappa + mu - 1.0).to(dt))
     aas_t = _anneal(_lanes(apply_sigma_t, aa_t), aa_t, eps)
     inv_sqz = (1.0 / sqz).to(dt)
-    rho_t = torch.clamp(c_xy * inv_sqz[..., None, :], -rho_clip, rho_clip)
-    grad_t = (aas_t + _mm(rho_t, hmat.to(dt))
-              - rho_t * coef[..., None, :]) * inv_sqz[..., None, :]
+    rho_t = torch.clamp(c_all * inv_sqz[..., None, :], -rho_clip, rho_clip)
+    inv_mine = sp.mine(inv_sqz)
+    grad_t = (aas_t + _mm(rho_t, sp.mine(hmat.to(dt)))
+              - sp.mine(rho_t) * coef[..., None, :]) * inv_mine[..., None, :]
     objective, tc = _chain_obj_tc(dt, z2, sum_log_vi, mi_sums, y_scale)
     return objective, grad_t.mT, tc
 
 
 def ns_obj_grad_samples(ws, x, eps, y_scale, rho_clip, bf16=False,
-                        chain_kernel=False):
+                        chain_kernel=False, model=None):
     """(objective, gradient, TC) of the non-overlap objective, samples
     path: 4 skinny GEMMs (2 for the moments, 2 for AA·Σ_eff). bf16=True
     runs them on bfloat16 operands with float32 products; an int8
-    QuantizedData `x` runs them as int8 products."""
+    QuantizedData `x` runs them as int8 products. `model`: the axis W's
+    rows are split over (`ws` this rank's rows)."""
     return _ns_obj_grad(ws, x, eps, y_scale, rho_clip, bf16, chain_kernel,
-                        gram=False)
+                        gram=False, model=model)
 
 
 def ns_obj_grad_gram(ws, gram, eps, y_scale, rho_clip, bf16=False,
-                     chain_kernel=False):
+                     chain_kernel=False, model=None):
     """Same as `ns_obj_grad_samples` on the precomputed Gram matrix:
     2 O(p²·m) GEMMs per evaluation, independent of n."""
     return _ns_obj_grad(ws, gram, eps, y_scale, rho_clip, bf16,
-                        chain_kernel, gram=True)
+                        chain_kernel, gram=True, model=model)
 
 
 def _ns_obj_grad(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel,
-                 gram):
+                 gram, model=None):
+    sp = Split(var_of(data), model)
     c_xy = _cxy_eff(data, ws, eps, bf16, gram)
     if chain_kernel:
         return _ns_obj_grad_chain(
             ws, c_xy, _apply_sigma_t(data, bf16, gram, ws.dtype), eps,
-            y_scale, rho_clip)
-    mom = moments_from_cxy(ws, c_xy, y_scale, rho_clip)
-    aa, hmat, coef, sqz = _ns_gradient_terms(mom)
+            y_scale, rho_clip, sp)
+    mom, rho_all, rr_all = _moment_parts(ws, c_xy, y_scale, rho_clip, sp)
+    aa, hmat, coef, sqz = _ns_gradient_terms(mom, sp, rr_all)
     aas = _anneal(_lane_rows(_apply_sigma_rows(data, bf16, gram, ws.dtype),
                              aa), aa, eps)
-    grad = (aas + _mm(hmat, mom.rho)
+    grad = (aas + _mm(sp.mine(hmat, -2), rho_all)
             - coef[..., :, None] * mom.rho) / sqz[..., :, None]
     return mom.objective, grad, mom.tc
 
 
 def _apply_sigma_rows(data, bf16, gram, dtype):
     """a (r, p) ↦ a·Σ_emp for the operand mode: the row-layout form of
-    `_apply_sigma_t` (the gradient path's AA·Σ)."""
+    `_apply_sigma_t` (the gradient path's AA·Σ). Under `var`, a and the
+    result are this rank's columns."""
     if is_quantized(data):
         return lambda a: _apply_int8(data, a.T, gram).T.to(dtype)
-    if gram:
-        if bf16:
-            return lambda a: _mm_bf16(a, data, dtype)
-        return lambda a: _mm(a, data)
+    var = var_of(data)
     x, n, axes = _unsharded(data)
+    if gram:
+        apply = _gram_rows(x, var)
+        if bf16:
+            return lambda a: apply(a, lambda u, w: _mm_bf16(u, w, dtype))
+        return apply
+    vs = Split(var=var).vsum
     if bf16:
         return lambda a: all_reduce(
-            _mm_bf16(_mm_bf16(a, x.T, dtype), x, dtype), axes) / n
-    return lambda a: all_reduce(_mm(_mm(a, x.T), x), axes) / n
+            _mm_bf16(vs(_mm_bf16(a, x.T, dtype)), x, dtype), axes) / n
+    return lambda a: all_reduce(_mm(vs(_mm(a, x.T)), x), axes) / n
 
 
 # ---------------------------------------------------------------------------
@@ -666,7 +904,7 @@ def _apply_sigma_rows(data, bf16, gram, dtype):
 # ---------------------------------------------------------------------------
 
 def ns_fp_parts(ws, data, eps, y_scale, rho_clip, bf16=False,
-                chain_kernel=False, gram=False):
+                chain_kernel=False, gram=False, model=None):
     """Pieces of the closed-form fixed-point target, before the m x m
     solve. Setting the gradient to zero with rho = diag(1/sqz)·W·Σ_eff
     gives Ŵ = diag(sqz)·(diag(coef) − H)⁻¹·AA. Returns (objective, tc,
@@ -674,55 +912,62 @@ def ns_fp_parts(ws, data, eps, y_scale, rho_clip, bf16=False,
     surplus factors have died; the damped accept/reject iteration
     tolerates the inexact inverse."""
     c_xy = _cxy_eff(data, ws, eps, bf16, gram)
-    return fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip, chain_kernel)
+    return fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip, chain_kernel,
+                             var=var_of(data), model=model)
 
 
-def fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip, chain_kernel=False):
-    """`ns_fp_parts` given an already-annealed C_xy."""
+def fp_parts_from_cxy(ws, c_xy, y_scale, rho_clip, chain_kernel=False,
+                      var=None, model=None):
+    """`ns_fp_parts` given an already-annealed C_xy. Under a split aa_t is
+    this rank's rows with every factor (p_loc, m) and sqz this rank's
+    factors; a_mat is whole."""
+    sp = Split(var, model)
     if chain_kernel:
-        dt, z2, sqz, (aa_t, hmat, kappa, mu, mi_sums, slv) = _run_chain(
-            ws, c_xy, y_scale, rho_clip)
+        dt, z2, sqz, (aa_t, hmat, kappa, mu, mi_sums, slv), _ = _run_chain(
+            ws, c_xy, y_scale, rho_clip, sp)
         coef = (kappa + mu - 1.0).to(dt)
         a_mat = torch.diag_embed(coef) - hmat.to(dt)
         objective, tc = _chain_obj_tc(dt, z2, slv, mi_sums, y_scale)
-        return objective, tc, a_mat, aa_t.to(dt), sqz
-    mom = moments_from_cxy(ws, c_xy, y_scale, rho_clip)
-    aa, hmat, coef, sqz = _ns_gradient_terms(mom)
-    a_mat = torch.diag_embed(coef) - hmat
-    return mom.objective, mom.tc, a_mat, aa.mT, sqz
+        return objective, tc, a_mat, sp.my_vars(aa_t.to(dt)), sp.mine(sqz)
+    mom, _, rr_all = _moment_parts(ws, c_xy, y_scale, rho_clip, sp)
+    aa, hmat, coef, sqz = _ns_gradient_terms(mom, sp, rr_all)
+    a_mat = torch.diag_embed(sp.all_factors(coef)) - hmat
+    return mom.objective, mom.tc, a_mat, sp.all_factors(aa, -2).mT, sqz
 
 
-def fp_target_from_parts(ws, a_mat_inv, aa_t, sqz):
+def fp_target_from_parts(ws, a_mat_inv, aa_t, sqz, model=None):
     """The solver direction ws − Ŵ from `ns_fp_parts` pieces and the
     inverse of a_mat (applied as inverse + GEMM, as the JAX package
-    does)."""
-    target = _mm(a_mat_inv, aa_t.mT) * sqz[..., :, None]
+    does). Under `model`, the rows J of this rank."""
+    target = _mm(Split(model=model).mine(a_mat_inv, -2), aa_t.mT) \
+        * sqz[..., :, None]
     return ws - target
 
 
 def ns_fp_samples(ws, x, eps, y_scale, rho_clip, bf16=False,
-                  chain_kernel=False):
+                  chain_kernel=False, model=None):
     """(objective, ws − Ŵ, TC) for the damped fixed-point update, samples
     path. The solver's plain-GD step turns the direction into
     (1−γ)·ws + γ·Ŵ."""
     return _ns_fp(ws, x, eps, y_scale, rho_clip, bf16, chain_kernel,
-                  gram=False)
+                  gram=False, model=model)
 
 
 def ns_fp_gram(ws, gram, eps, y_scale, rho_clip, bf16=False,
-               chain_kernel=False):
+               chain_kernel=False, model=None):
     """Gram-path fixed-point update: one O(p²·m) GEMM per iteration."""
     return _ns_fp(ws, gram, eps, y_scale, rho_clip, bf16, chain_kernel,
-                  gram=True)
+                  gram=True, model=model)
 
 
-def _ns_fp(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram):
+def _ns_fp(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram,
+           model=None):
     obj, tc, a_mat, aa_t, sqz = ns_fp_parts(
-        ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram)
+        ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram, model)
     # inv_ex, as jnp.linalg.inv: a singular a_mat gives inf/NaN (a rejected
     # step of that lane) instead of an exception, and no host sync
     a_inv = torch.linalg.inv_ex(a_mat).inverse
-    return obj, fp_target_from_parts(ws, a_inv, aa_t, sqz), tc
+    return obj, fp_target_from_parts(ws, a_inv, aa_t, sqz, model), tc
 
 
 # ---------------------------------------------------------------------------
@@ -740,37 +985,42 @@ def _cholesky_or_nan(cy):
     return torch.where(info[..., None, None] == 0, chol, torch.nan)
 
 
-def _overlap_core(ws, b, cy_chol, y_scale):
-    """F and the shared terms given B = Σ_eff·Wᵀ and chol(C_y)."""
-    m = ws.shape[-2]
+def _overlap_core(ws, b, cy_chol, y_scale, sp=NO_SPLIT):
+    """F and the shared terms given B = Σ_eff·Wᵀ (this rank's rows, every
+    factor) and chol(C_y)."""
+    m = b.shape[-1]
     bm = torch.cholesky_solve(b.mT, cy_chol, upper=False).mT     # p x m
     v = torch.clamp(1.0 - torch.sum(bm * b, dim=-1), min=1e-12)
     logdet = 2.0 * torch.sum(
         torch.log(torch.diagonal(cy_chol, dim1=-2, dim2=-1)), dim=-1)
-    f = 0.5 * torch.sum(torch.log(v), dim=-1) + 0.5 * logdet \
+    f = 0.5 * sp.vsum(torch.sum(torch.log(v), dim=-1)) + 0.5 * logdet \
         - m * torch.log(torch.tensor(y_scale, dtype=ws.dtype,
                                      device=ws.device))
     return f, bm, v
 
 
-def _overlap_from_b(ws, b, eps, y_scale, apply_sigma):
+def _overlap_from_b(ws, b, eps, y_scale, apply_sigma, sp=NO_SPLIT):
     """The overlap objective and gradient from the annealed B;
     `apply_sigma(g)` maps an (m, p) matrix to g·Σ_emp (lanes: their rows
-    stacked, `_lane_rows`)."""
-    mdim = ws.shape[-2]
-    cy = _mm(ws, b) + (y_scale ** 2) * torch.eye(mdim, dtype=ws.dtype,
-                                                 device=ws.device)
+    stacked, `_lane_rows`). Under a split B and the gradient are this
+    rank's blocks; B's columns are gathered over `model` and the m x m
+    solves run whole on every rank."""
+    b_all = sp.all_factors(b)
+    mdim = b_all.shape[-1]
+    cy = sp.all_factors(sp.vsum(_mm(ws, b_all)), -2) + (y_scale ** 2) \
+        * torch.eye(mdim, dtype=ws.dtype, device=ws.device)
     chol = _cholesky_or_nan(cy)
-    f, bm, v = _overlap_core(ws, b, chol, y_scale)
-    g_lhs = (bm / v[..., :, None]).mT                            # m x p
+    f, bm, v = _overlap_core(ws, b_all, chol, y_scale, sp)
+    g_all = (bm / v[..., :, None]).mT                            # m x p
+    g_lhs = sp.mine(g_all, -2)
     gs = _anneal(_lane_rows(apply_sigma, g_lhs), g_lhs, eps)
-    k = _mm(g_lhs, b)
-    mbt = torch.cholesky_solve(b.mT, chol, upper=False)          # m x p
-    grad = -gs + _mm(k, mbt) + mbt
+    k = sp.vsum(_mm(g_lhs, b_all))
+    mbt = torch.cholesky_solve(b_all.mT, chol, upper=False)      # m x p
+    grad = -gs + _mm(k, mbt) + sp.mine(mbt, -2)
     return f, grad, -f
 
 
-def overlap_obj_grad_samples(ws, x, eps, y_scale):
+def overlap_obj_grad_samples(ws, x, eps, y_scale, model=None):
     """(objective, gradient, TC proxy) of the exact Gaussian objective.
 
     ∇F = −(M Bᵀ V)·Σ_eff + (M Bᵀ V B M)·Bᵀ + M·Bᵀ with M = C_y⁻¹,
@@ -778,13 +1028,16 @@ def overlap_obj_grad_samples(ws, x, eps, y_scale):
     b = _anneal(_lanes(_apply_sigma_t(x, False, False, ws.dtype), ws.mT),
                 ws.mT, eps)
     return _overlap_from_b(ws, b, eps, y_scale,
-                           _apply_sigma_rows(x, False, False, ws.dtype))
+                           _apply_sigma_rows(x, False, False, ws.dtype),
+                           Split(var_of(x), model))
 
 
-def overlap_obj_grad_gram(ws, gram, eps, y_scale):
+def overlap_obj_grad_gram(ws, gram, eps, y_scale, model=None):
     """Gram-path variant of `overlap_obj_grad_samples`. Σ·Wᵀ keeps the
     working dtype. (The JAX package's product rounds it to float32 in
     every dtype, so in float64 the two differ at ~1e-7; the port agrees
     with the float64 oracle instead.)"""
-    b = _anneal(_lanes(lambda v: _mm(gram, v), ws.mT), ws.mT, eps)
-    return _overlap_from_b(ws, b, eps, y_scale, lambda g: _mm(g, gram))
+    g, var = _unsharded(gram)[0], var_of(gram)
+    b = _anneal(_lanes(_gram_t(g, var), ws.mT), ws.mT, eps)
+    return _overlap_from_b(ws, b, eps, y_scale, _gram_rows(g, var),
+                           Split(var, model))

@@ -2,7 +2,8 @@
 
 - `restarts`: k fits run as lanes of one solve, on one device or split
   over a mesh's `restarts` axis.
-- `sharding`: sample-sharded fits over a `torch.distributed` device mesh
+- `sharding`: fits over a `torch.distributed` device mesh with the
+  samples, the variables and the factors split per a `ShardingPlan`
   (plans, meshes, `fit_sharded`, `fit_shard_map`); its docstring states
   the model of execution.
 - `collectives`: every cross-rank sum, maximum and gather, counted.

@@ -1,9 +1,10 @@
 """The collectives of a sharded fit, written out and counted.
 
-Every sum, maximum and gather that crosses ranks in this package goes
-through the functions here (`all_reduce`, `all_gather_rows`,
-`all_gather_lanes`, and `broadcast_int` for a shared seed), each a
-`torch.distributed` call on one mesh axis' process group. Each call is recorded (kind, reduce op, axis, dtype,
+Every sum, maximum, gather and hand-over that crosses ranks in this
+package goes through the functions here (`all_reduce`, `all_gather_rows`,
+`all_gather_dim`, `all_gather_lanes`, `reduce_scatter_dim`, `ring_pass`,
+and `broadcast_int` for a shared seed), each a `torch.distributed` call on one mesh axis'
+process group. Each call is recorded (kind, reduce op, axis, dtype,
 elements, payload bytes), so after a fit `collective_counts()` is the
 communication surface of what ran: the place `parallel/audit.py` holds in
 the JAX package, which reads the same facts out of compiled HLO.
@@ -15,8 +16,9 @@ in the order given, one `all_reduce` per axis; the order of a float sum is
 part of the result, so callers keep it fixed (`parallel.sharding` reduces
 over `data`, then over `slice`).
 
-This module imports torch only; `ops.moments` and `ops.preprocessing`
-call it for a sample-sharded operand.
+This module imports torch only; `ops.moments`, `ops.preprocessing`,
+`core.solver` and the serving methods call it for a sharded operand or a
+split W.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ import torch
 import torch.distributed as dist
 
 __all__ = ["Axis", "Collective", "all_reduce", "all_gather_rows",
-           "all_gather_lanes", "broadcast_int", "collective_counts",
+           "all_gather_dim", "all_gather_lanes", "reduce_scatter_dim",
+           "ring_pass",
+           "broadcast_int", "collective_counts",
            "reset_collective_counts", "shard_count", "shard_index"]
 
 
@@ -43,7 +47,8 @@ class Axis(NamedTuple):
 class Collective(NamedTuple):
     """One kind of collective call: what was sent, over which axis."""
 
-    kind: str       # "all_reduce" | "all_gather" | "broadcast"
+    kind: str       # "all_reduce" | "all_gather" | "reduce_scatter" |
+    #                 "ring" | "broadcast"
     op: str         # "sum" | "max" | "" (gathers, broadcasts)
     axis: str
     dtype: str
@@ -58,6 +63,8 @@ _REDUCE_OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 # one flat output tensor per gather; newer torch renames the call
 _ALL_GATHER = getattr(dist, "all_gather_single", None) \
     or dist.all_gather_into_tensor
+_REDUCE_SCATTER = getattr(dist, "reduce_scatter_single", None) \
+    or dist.reduce_scatter_tensor
 
 
 def reset_collective_counts() -> None:
@@ -135,6 +142,46 @@ def all_gather_rows(t: torch.Tensor, axes: Sequence[Axis]) -> torch.Tensor:
     for a in reversed(tuple(axes)):
         t = _gather(t, a)
     return t
+
+
+def all_gather_dim(t: torch.Tensor, dim: int, a: Axis) -> torch.Tensor:
+    """The whole of a tensor whose dimension `dim` is split over the one
+    axis `a` (one gather). The result keeps the input's layout: row-major,
+    or the transpose of a row-major matrix (W's columns handed over as
+    Wᵀ), so a product with it runs the same GEMM as with an unsplit
+    operand."""
+    if t.ndim == 2 and not t.is_contiguous() and t.mT.is_contiguous():
+        return all_gather_dim(t.mT, 1 - dim % 2, a).mT
+    if dim % t.ndim == 0:
+        return _gather(t, a)
+    return _gather(t.movedim(dim, 0), a).movedim(0, dim).contiguous()
+
+
+def reduce_scatter_dim(t: torch.Tensor, dim: int, a: Axis) -> torch.Tensor:
+    """`t` summed over the one axis `a`, each rank keeping its block of
+    dimension `dim` (one reduce-scatter), in row-major layout."""
+    src = t.movedim(dim, 0).contiguous()
+    _record("reduce_scatter", "sum", a, src)
+    out = src.new_empty((src.shape[0] // a.size,) + tuple(src.shape[1:]))
+    _REDUCE_SCATTER(out, src, op=dist.ReduceOp.SUM, group=a.group)
+    return out.movedim(0, dim).contiguous()
+
+
+def ring_pass(t: torch.Tensor, a: Axis) -> torch.Tensor:
+    """One step of a ring over `a`: this rank sends `t` to the next rank
+    along the axis and returns the block of the previous one (same shape
+    and dtype). `a.size - 1` passes hand every block to every rank, one
+    block at a time."""
+    t = t.contiguous()
+    _record("ring", "", a, t)
+    out = torch.empty_like(t)
+    nxt = dist.get_global_rank(a.group, (a.index + 1) % a.size)
+    prv = dist.get_global_rank(a.group, (a.index - 1) % a.size)
+    for req in dist.batch_isend_irecv([
+            dist.P2POp(dist.isend, t, nxt, a.group),
+            dist.P2POp(dist.irecv, out, prv, a.group)]):
+        req.wait()
+    return out
 
 
 def all_gather_lanes(tensors: Sequence[torch.Tensor],

@@ -1,11 +1,10 @@
-"""Multi-device execution: sample-sharded fits over a device mesh, on
+"""Multi-device execution: sharded fits over a device mesh, on
 `torch.distributed`.
 
-Port of `linearcorex_tpu/parallel/sharding.py` for every layout over the
-sample axes (`data`, `slice`); restart lanes over a `restarts` axis are in
-`parallel.restarts`. Variable and factor sharding (`shard_vars`,
-`shard_factors`) are not ported yet and raise NotImplementedError naming
-ROADMAP.md item 17b.
+Port of `linearcorex_tpu/parallel/sharding.py`: every `ShardingPlan` over
+the sample axes (`data`, `slice`), the variable axis (`var`) and the
+factor axis (`model`), alone or together on a mesh of several axes;
+restart lanes over a `restarts` axis are in `parallel.restarts`.
 
 The model of execution
 ----------------------
@@ -21,16 +20,27 @@ process per device, and the collectives are written out here. The rule:
   whose device type differs from the model's device. Nothing falls back
   to one device.
 - Every rank calls the same entry point with the same arguments: the
-  whole X, as the JAX surface takes it. A rank keeps only its own row
-  block on its device; a rank that passes a host array never lands the
-  whole X there.
-- Every result is replicated. After a fit, `ws`, the moments, the
-  diagnostics and theta are equal bit for bit on every rank: each sum over
-  samples is an `all_reduce`, which leaves the same bits everywhere, and
-  all arithmetic after it is the same on every rank. The solver's
-  accept/reject decisions read only such values, so the ranks never take
-  different branches. Serving calls return the whole result on every rank
-  (rows gathered over the sample axes).
+  whole X, as the JAX surface takes it. A rank keeps only its own block
+  on its device (its rows over the sample axes, its columns over `var`);
+  a rank that passes a host array never lands the whole X there.
+- `var` splits the p variables: X's columns, W's columns and a Gram
+  operand's rows (Σ row blocks). Per-variable quantities stay local; sums
+  over p are local sums and one `all_reduce` over `var`, and only
+  m-sized, (m, m) and (n_loc, m) blocks cross it (`ops.moments` states
+  each). No rank ever holds the whole (n, p) X or the whole (p, p) Σ.
+- `model` splits the m factors: W's rows. Sums over m are (p,) vectors
+  summed over `model`; the m-wide couplings all-gather C_xy's columns (at
+  most m x p values), and each rank computes its rows of them.
+- Every result of a fit is replicated. After a fit, `ws`, the moments,
+  the diagnostics and theta are equal bit for bit on every rank: each sum
+  over ranks is an `all_reduce` or a gather, which leaves the same bits
+  everywhere, and all arithmetic after it is the same on every rank. The
+  fit ends with one all-gather of each split m x p or p x m result. The
+  solver's accept/reject decisions and its step size read only such
+  values (max|ΔW| is a MAX `all_reduce` over W's axes), so the ranks
+  never take different branches. Serving calls return the (n, m) factors
+  whole on every rank; under `var` a p-sized output stays split (a
+  `torch.distributed.tensor.DTensor`, `Shard` over `var`).
 
 The communication surface of a sample-sharded fit is one SUM `all_reduce`
 of the (p, m) cross-moment per Σ-application (one per objective evaluation
@@ -38,6 +48,10 @@ on the fixed point, two on the gradient paths). Rows split over both
 `slice` and `data` reduce over `data` first, then over `slice`: two
 `all_reduce`s, in that fixed order. Everything after the sum is replicated,
 so the fused chain kernel runs unchanged on each rank's full C_xy.
+Under `var` or `model` the same Σ-applications carry this rank's block,
+and the chain kernel takes the whole (p, m) C_xy: `use_pallas='auto'`
+turns it off for such plans (`resolve_sharded_config`), and 'always'
+all-gathers C_xy over the split axes before each launch.
 `collective_counts()` reads back what a fit sent.
 """
 
@@ -61,7 +75,8 @@ from linearcorex_tpu_torch.parallel.collectives import (Axis, all_reduce,
 
 __all__ = ["ShardingPlan", "make_mesh", "make_hybrid_mesh", "fit_sharded",
            "fit_shard_map", "operand_specs", "validate_plan_shapes",
-           "resolve_sharded_config", "all_reduce", "collective_counts",
+           "resolve_sharded_config", "shard_block", "shard_w", "as_dtensor",
+           "all_reduce", "collective_counts",
            "reset_collective_counts", "SLICE_AXIS", "DATA_AXIS", "VAR_AXIS",
            "FACTOR_AXIS"]
 
@@ -188,18 +203,6 @@ def validate_plan_shapes(plan: ShardingPlan, strategy: str, mesh,
         need([FACTOR_AXIS], "factor", m, "n_hidden")
 
 
-def reject_unported_plan(plan: ShardingPlan, what: str) -> None:
-    """Plans that shard the variable or the factor axis need sharded
-    forms of the moment functions: not ported yet."""
-    if plan.shard_vars or plan.shard_factors:
-        raise NotImplementedError(
-            f"{what} under a ShardingPlan with shard_vars / shard_factors "
-            f"is not ported to the PyTorch package yet (ROADMAP.md Queue "
-            f"1, item 17b (variable and factor sharding)); plans over the "
-            f"sample axes (shard_samples, shard_slices) run, and the JAX "
-            f"package linearcorex_tpu supports the rest")
-
-
 _MESH_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 
 
@@ -271,6 +274,16 @@ def sample_axes(mesh, plan: ShardingPlan) -> Tuple[Axis, ...]:
     """The `Axis` tuple (outermost first) the plan splits sample rows
     over."""
     return tuple(mesh_axis(mesh, a) for a in plan.sample_axis_names())
+
+
+def var_axis(mesh, plan: ShardingPlan) -> Optional[Axis]:
+    """The `Axis` the plan splits the variables over, or None."""
+    return mesh_axis(mesh, VAR_AXIS) if plan.shard_vars else None
+
+
+def factor_axis(mesh, plan: ShardingPlan) -> Optional[Axis]:
+    """The `Axis` the plan splits the factors (W's rows) over, or None."""
+    return mesh_axis(mesh, FACTOR_AXIS) if plan.shard_factors else None
 
 
 def _mesh_from_ranks(device_type: str, ranks: np.ndarray, names, timeout):
@@ -386,8 +399,9 @@ def resolve_sharded_config(cfg: CorexConfig, mesh, plan: ShardingPlan,
                            p: int, n_samples) -> CorexConfig:
     """'auto'-knob resolution for a sharded fit: var/factor-sharded
     layouts turn the chain kernel off (it takes the full (p, m)
-    cross-moment, which those layouts never hold on one device), then the
-    standard resolve_config runs against the MESH's device type."""
+    cross-moment, which those layouts hold on no rank: 'always' gathers it
+    before every launch), then the standard resolve_config runs against
+    the MESH's device type."""
     from linearcorex_tpu_torch.models.corex import resolve_config
     if plan.shard_vars or plan.shard_factors:
         if cfg.use_pallas == "auto":
@@ -403,34 +417,97 @@ def _as_device_tensor(a, device, dtype=None):
     return a.to(device=device)
 
 
+def _block(n: int, axes) -> slice:
+    """This rank's block of a dimension of size n split over `axes`."""
+    d = n // shard_count(axes)
+    first = shard_index(axes) * d
+    return slice(first, first + d)
+
+
 def shard_rows(x, axes: Tuple[Axis, ...], device, dtype=None):
     """This rank's row block of the whole `x` (a tensor or a host array),
     on `device`: only the block is copied there. `axes` outermost first;
     no axes: all of `x`."""
-    d = shard_count(axes)
-    rows = x.shape[0] // d
-    first = shard_index(axes) * rows
-    return _as_device_tensor(x[first:first + rows], device, dtype)
+    return _as_device_tensor(x[_block(x.shape[0], axes)], device, dtype)
 
 
-def shard_samples(data, axes: Tuple[Axis, ...], device, dtype=None):
+def shard_block(x, axes: Tuple[Axis, ...], var: Optional[Axis], device,
+                dtype=None):
+    """This rank's block of the whole (n, p) `x`: its rows over the sample
+    `axes` and its columns over `var` (None: every column), on `device`.
+    Only the block is copied there."""
+    cols = _block(x.shape[1], (var,) if var else ())
+    return _as_device_tensor(x[_block(x.shape[0], axes), cols], device,
+                             dtype)
+
+
+def shard_w(w, var: Optional[Axis], model: Optional[Axis], device,
+            dtype=None):
+    """This rank's block of the whole (m, p) W: its rows over `model`,
+    its columns over `var`."""
+    return shard_block(w, (model,) if model else (), var, device, dtype)
+
+
+def shard_samples(data, axes: Tuple[Axis, ...], device, dtype=None,
+                  var: Optional[Axis] = None):
     """The `ShardedSamples` operand of this rank from the whole samples
     operand (X, its bf16 cast, or its `QuantizedData`, whose scale is
-    already the whole tensor's). An operand that is sharded already, or a
-    plan without sample axes, passes through (placed on `device`)."""
+    already the whole tensor's): its rows over the sample `axes`, its
+    columns over `var`. An operand that is sharded already, or a plan
+    that splits neither, passes through (placed on `device`)."""
     if isinstance(data, M.ShardedSamples):
         return data
     if isinstance(data, M.QuantizedData):
-        n = data.q.shape[0]
+        n, p = data.q.shape
         local = M.QuantizedData(
-            q=shard_rows(data.q, axes, device),
+            q=shard_block(data.q, axes, var, device),
             scale=_as_device_tensor(data.scale, device))
     else:
-        n = data.shape[0]
-        local = shard_rows(data, axes, device, dtype)
-    if not axes:
+        n, p = data.shape
+        local = shard_block(data, axes, var, device, dtype)
+    if not axes and var is None:
         return local
-    return M.ShardedSamples(local=local, n_total=n, axes=tuple(axes))
+    return M.ShardedSamples(local=local, n_total=n, axes=tuple(axes),
+                            p_total=p, var=var)
+
+
+def shard_gram(data, var: Optional[Axis], device, dtype=None):
+    """The Gram operand of this rank from the whole Σ (or its
+    `QuantizedData`): its row block Σ[I, :] over `var`, or the whole Σ
+    when the plan does not split the variables. An operand that is
+    sharded already passes through."""
+    if isinstance(data, M.ShardedSamples):
+        return data
+    quantized = isinstance(data, M.QuantizedData)
+    p = (data.q if quantized else data).shape[0]
+    rows = _block(p, (var,) if var else ())
+    if quantized:
+        local = M.QuantizedData(q=_as_device_tensor(data.q[rows], device),
+                                scale=_as_device_tensor(data.scale, device))
+    else:
+        local = _as_device_tensor(data[rows], device, dtype)
+    if var is None:
+        return local
+    return M.ShardedSamples(local=local, n_total=p, axes=(), p_total=p,
+                            var=var, gram=True)
+
+
+def as_dtensor(local: torch.Tensor, mesh, dims: dict):
+    """A `DTensor` over `mesh` from this rank's block `local`: `dims` maps
+    a mesh axis name to the tensor dimension it splits (`Shard`); every
+    other axis holds the same block on each of its ranks (`Replicate`).
+    `.full_tensor()` gathers it whole."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    sizes = mesh_sizes(mesh)
+    shape = list(local.shape)
+    for name, dim in dims.items():
+        shape[dim] *= sizes[name]
+    placements = [Shard(dims[name]) if name in dims else Replicate()
+                  for name in mesh.mesh_dim_names]
+    return DTensor.from_local(
+        local.contiguous(), mesh, placements, run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
 
 
 def fit_shard_map(x, w0, cfg: CorexConfig, mesh,
@@ -487,31 +564,32 @@ def fit_sharded(data, w0, cfg: CorexConfig, mesh,
                 strategy: str = "samples", n_samples=None,
                 check_overflow: bool = True):
     """Run the annealed fit with the data laid out per `plan` on `mesh`:
-    the single-device fit program (`models.corex._fit_program`) on a
-    `ShardedSamples` operand, whose Σ-applications sum over the plan's
-    sample axes.
+    the single-device fit program (`models.corex._fit_program`) on this
+    rank's block of the operand and of W0 (`operand_specs`).
 
     strategy='samples': `data` is the whole X (n x p), on every rank; each
-    keeps its row block (`shard_samples` rows over `data`, `shard_slices`
-    over `slice` too, slice-major). A plan with neither, and
-    strategy='gram' (`data` is Σ, p x p; a sample-only plan has no axis of
-    it to shard), run replicated: every rank does the whole work. Returns
-    (ws, Moments, FitDiagnostics), replicated.
+    keeps its rows over the plan's sample axes (`shard_samples` rows over
+    `data`, `shard_slices` over `slice` too, slice-major) and its columns
+    over `var` (`shard_vars`). strategy='gram': `data` is Σ (p x p); under
+    `shard_vars` each rank keeps its row block Σ[I, :], else every rank
+    holds all of it (a sample-only plan has no axis of it to shard). W0 is
+    split by columns over `var` and by rows over `model`
+    (`shard_factors`). `data` may also be the `ShardedSamples` block the
+    mesh-aware prepare of `Corex.fit(mesh=...)` made. Returns (ws,
+    Moments, FitDiagnostics), whole and the same bits on every rank.
 
     A caller-built `QuantizedData` operand runs the int8 accumulator-wrap
     guard here (this is where pre-quantized operands arrive, past
     `quantize_samples`' own guard); pass check_overflow=False only when
     the same operand was already guarded, as `Corex.fit(mesh=...)` does.
-    A plan with shard_vars / shard_factors raises NotImplementedError
-    (item 17b)."""
+    """
     from linearcorex_tpu_torch.models.corex import _fit_program, torch_dtype
-    reject_unported_plan(plan, "fit_sharded")
     device = check_mesh(mesh)
     if M.is_quantized(data) and check_overflow:
         M._check_int8_wrap(data)
     operand = M._unsharded(data)[0]
     operand = operand.q if isinstance(operand, M.QuantizedData) else operand
-    p = operand.shape[-1]
+    p = M.n_cols(data)
     if n_samples is None and strategy == "samples":
         n_samples = M.n_rows(data)
     cfg = resolve_sharded_config(cfg, mesh, plan, p, n_samples)
@@ -521,11 +599,11 @@ def fit_sharded(data, w0, cfg: CorexConfig, mesh,
     operand_specs(plan, strategy)   # shard_slices on a Gram operand raises
     dt = torch_dtype(cfg.dtype)
     host_dt = None if isinstance(operand, torch.Tensor) else dt
+    var, model = var_axis(mesh, plan), factor_axis(mesh, plan)
     if strategy == "gram":
-        data = _as_device_tensor(data, device, host_dt) \
-            if not isinstance(data, M.QuantizedData) else M.QuantizedData(
-                q=data.q.to(device), scale=data.scale.to(device))
+        data = shard_gram(data, var, device, host_dt)
     else:
-        data = shard_samples(data, sample_axes(mesh, plan), device, host_dt)
-    return _fit_program(data, _as_device_tensor(w0, device, dt), cfg,
-                        strategy)
+        data = shard_samples(data, sample_axes(mesh, plan), device, host_dt,
+                             var)
+    return _fit_program(data, shard_w(w0, var, model, device, dt), cfg,
+                        strategy, model=model)

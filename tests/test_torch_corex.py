@@ -210,16 +210,22 @@ def test_resolve_config_per_device():
     assert resolve_config(cfg, 10000, "cuda", 200).optimizer == "momentum"
 
 
-@pytest.mark.parametrize("kwargs,fit_kwargs", [
+@pytest.mark.parametrize("kwargs,fit_kwargs,error,text", [
+    # var and factor plans run (tests/test_torch_sharding_vars.py): a
+    # restart sweep under one raises by name, and a mesh without a
+    # process group says what to initialize
     (dict(n_restarts=2), dict(mesh=object(),
-                              sharding_plan=ShardingPlan(shard_vars=True))),
+                              sharding_plan=ShardingPlan(shard_vars=True)),
+     ValueError, "sample sharding only"),
     ({}, dict(mesh=object(),
-              sharding_plan=ShardingPlan(shard_factors=True))),
-    (dict(matmul_precision="high"), {}),
+              sharding_plan=ShardingPlan(shard_factors=True)),
+     RuntimeError, "default process group"),
+    (dict(matmul_precision="high"), {}, NotImplementedError,
+     "ROADMAP.md Queue 1"),
 ])
-def test_unported_options_raise(kwargs, fit_kwargs, data):
+def test_unported_options_raise(kwargs, fit_kwargs, error, text, data):
     c = lct.Corex(n_hidden=4, device="cpu", **kwargs)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    with pytest.raises(error, match=text):
         c.fit(data, **fit_kwargs)
 
 

@@ -457,6 +457,64 @@ def test_mesh_fit_in_a_world_of_one_is_the_plain_samples_fit(tmp_path,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("matmul_dtype", ["float32", "int8"])
+def test_var_and_factor_fits_in_a_world_of_one_are_the_plain_fit(
+        tmp_path, matmul_dtype):
+    """One NCCL rank on the card: var and factor plans run the split code
+    with every block whole and every collective over one rank, so each
+    mesh fit ends bitwise where the plain fit with use_pallas='never'
+    does; with use_pallas='always' the var fit gathers C_xy and launches
+    the chain kernel as often as the plain kernel fit, bitwise alike; var
+    serving is bitwise the plain calls."""
+    _need_cuda()
+    import torch.distributed as dist
+
+    from linearcorex_tpu_torch.parallel import sharding as S
+    from linearcorex_tpu_torch.parallel.launch import init_local_group
+    x = torch.as_tensor(_small_blocks()[0], dtype=torch.float32,
+                        device="cuda")
+    kw = dict(n_hidden=8, seed=0, max_iter=200, tol=1e-4,
+              matmul_dtype=matmul_dtype, device="cuda")
+    var = S.ShardingPlan(shard_samples=False, shard_vars=True)
+    init_local_group("nccl", 0, 1, str(tmp_path / "rendezvous"),
+                     timeout=120.0)
+    try:
+        for axes, plan, strategy in (
+                ((("var", 1),), var, "gram"),
+                ((("data", 1), ("model", 1)),
+                 S.ShardingPlan(shard_factors=True), "samples")):
+            mesh = S.make_mesh(axes)
+            a = lct.Corex(**kw).fit(x, mesh=mesh, sharding_plan=plan)
+            b = lct.Corex(moment_strategy=strategy, use_pallas="never",
+                          **kw).fit(x)
+            assert torch.equal(a.ws, b.ws) and a.tc == b.tc
+            assert torch.equal(a.diagnostics.iters_per_stage,
+                               b.diagnostics.iters_per_stage)
+        mesh = S.make_mesh((("var", 1),))
+        assert torch.equal(a.transform(x), b.transform(x))
+        y = b.transform(x)
+        served = lct.Corex(moment_strategy="gram", **kw).fit(
+            x, mesh=mesh, sharding_plan=var)
+        plain = lct.Corex(moment_strategy="gram", use_pallas="never",
+                          **kw).fit(x)
+        assert torch.equal(served.transform(x, mesh=mesh),
+                           plain.transform(x))
+        assert torch.equal(served.predict(y, mesh=mesh).full_tensor(),
+                           plain.predict(y))
+        assert torch.equal(served.score(x, mesh=mesh), plain.score(x))
+        CM.ns_chain.launches = 0
+        k = lct.Corex(use_pallas="always", **kw).fit(
+            x, mesh=mesh, sharding_plan=var)
+        launches = CM.ns_chain.launches
+        CM.ns_chain.launches = 0
+        kp = lct.Corex(use_pallas="always", **kw).fit(x)
+        assert launches > 0 and launches == CM.ns_chain.launches
+        assert torch.equal(k.ws, kp.ws) and k.tc == kp.tc
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
 def test_a_mesh_is_held_to_its_worlds_backend(tmp_path):
     """An NCCL world carries a CUDA mesh and refuses a CPU mesh by name
     (the mirror of the gloo world's refusal of a CUDA mesh, which the

@@ -363,7 +363,7 @@ def test_mesh_forms_raise_by_item():
     with pytest.raises(RuntimeError, match="default process group"):
         lct.Corex(n_restarts=2, device="cpu", **KW).fit(
             _lottery_data(), mesh=object())
-    with pytest.raises(NotImplementedError, match="item 17b"):
+    with pytest.raises(ValueError, match="sample sharding only"):
         lct.Corex(n_restarts=2, device="cpu", **KW).fit(
             _lottery_data(), mesh=object(),
             sharding_plan=ShardingPlan(shard_vars=True))

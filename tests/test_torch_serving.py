@@ -152,11 +152,11 @@ def test_mesh_arguments_raise_by_item(method, models):
     args = {"predict": np.zeros((2, 5)), "covariance_matvec": np.zeros(40),
             "covariance_matmat": np.zeros((40, 1))}.get(
         method, np.zeros((4, 40)))
-    # plans over the sample axes serve under a mesh
-    # (tests/test_torch_sharding.py); a plan over the variable or factor
-    # axis still raises by item, a mesh without a process group by name
+    # every plan serves under a mesh (tests/test_torch_sharding.py,
+    # tests/test_torch_sharding_vars.py); a mesh without a process group
+    # raises by name, whatever the plan
     from linearcorex_tpu_torch.parallel.sharding import ShardingPlan
-    with pytest.raises(NotImplementedError, match="item 17b"):
+    with pytest.raises(RuntimeError, match="default process group"):
         out = getattr(c, method)(
             args, mesh=object(), sharding_plan=ShardingPlan(shard_vars=True))
         next(iter(out))

@@ -931,34 +931,6 @@ def test_pick_fit_strategy_follows_the_plan_rule():
                 assert got == want and len(got_w) == len(want_w)
 
 
-@pytest.mark.parametrize("flags", [dict(shard_vars=True),
-                                   dict(shard_factors=True),
-                                   dict(shard_samples=False, shard_vars=True,
-                                        shard_factors=True)])
-def test_var_and_factor_plans_raise_naming_item_17b(flags):
-    plan = S.ShardingPlan(**flags)
-    x = _x512()
-    c = lct.Corex(device="cpu", max_iter=20, **KW64).fit(x)
-    calls = [
-        lambda: lct.Corex(device="cpu", **KW64).fit(
-            x, mesh=object(), sharding_plan=plan),
-        lambda: S.fit_sharded(x, _w0(), CorexConfig(**KW64), object(), plan),
-        lambda: c.transform(x, mesh=object(), sharding_plan=plan),
-        lambda: c.predict(np.zeros((4, 8)), mesh=object(),
-                          sharding_plan=plan),
-        lambda: c.score(x, mesh=object(), sharding_plan=plan),
-        lambda: c.covariance_matvec(np.zeros(64), mesh=object(),
-                                    sharding_plan=plan),
-        lambda: c.covariance_matmat(np.zeros((64, 2)), mesh=object(),
-                                    sharding_plan=plan),
-        lambda: next(iter(c.covariance_blocks(8, mesh=object(),
-                                              sharding_plan=plan))),
-    ]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="item 17b"):
-            call()
-
-
 def test_resolve_sharded_config_turns_the_chain_off_for_var_plans():
     mesh = _Mesh(("var", 2))
     mesh.device_type = "cuda"

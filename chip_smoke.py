@@ -100,6 +100,33 @@ non-zero and does not print the final line.
              DTensors split over `var`), get_covariance() raising by
              name. Reported: one m x p all-gather over `var` alone, and
              the mesh fits' walls beside the plain fits'.
+   sharded_stream  the same world of one: the moment-input and staged
+             fits over `make_mesh((("var", 1),))`, each bitwise its plain
+             form (W, TC, iterations per stage; the var plan turns the
+             kernel off on 'auto', so the plain forms run with
+             use_pallas='never'): GramAccumulator(P, mesh=) over ten
+             1000-row batches, its correlation() bitwise the plain one,
+             acc.fit in float32 and int8, and with use_pallas='always'
+             against the plain kernel fit with the same launches;
+             fit_from_covariance(mesh=) of the accumulated covariance;
+             partial_fit over two halves with the mesh on the first call;
+             fit_with_checkpoints(mesh=) whole, cut after stage 2 and
+             resumed under the mesh, and the mesh checkpoint resumed on
+             one device; StackedCorex([512, 32]) under the var plan
+             against the plain stack whose layer 1 runs 'never', and
+             under the data plan against the plain samples stack, each
+             launching the kernel as often (max_iter=300 per stage, a cut
+             depth). Reported: accumulation ms per batch, mesh and plain
+             in turns; ms per checkpoint stage; walls.
+   precision the Σ·Wᵀ product at the north-star shape under
+             matmul_precision 'high' must differ from the full-float32 one
+             by more than 0 and less than 1e-2 relative (TF32 ran), and
+             under 'highest' equal it bit for bit ('bfloat16' reported,
+             and whether it equals the TF32 product); fit_core float32
+             iterations/s with 'highest', 'high' and 'bfloat16' in turns;
+             the annealed fit's TC and block share over seeds 0-5 with
+             'high' and 'highest' (reported, not gated: TF32 moves the
+             basin).
    streaming x in ten batches of 1000 rows into GramAccumulator(P) on the
              card: correlation() within 1e-5 of compute_gram of the
              standardized x; acc.fit(n_hidden=512, optimizer='auto',
@@ -206,6 +233,7 @@ STREAM_BATCH = 1000     # rows per batch of the streamed north-star fit
 PF_MAX_ITER = 300       # per stage, for the two partial_fit solves
 STACK = [M, 32]
 STACK_TOL_REL = 1e-3    # a stack's layer 2: kernel fit vs plain-chain fit
+STACK_MAX_ITER = 300    # per stage, for the mesh stacks of sharded_stream
 # _mm_bf16 on the card vs the exact (float64) product of the bf16-rounded
 # operands, relative to its largest magnitude. The tensor cores' float32
 # accumulation itself is 1.2e-5-2.2e-5 off at K = 10,000 on an H100 (a
@@ -880,6 +908,300 @@ def sharded_vars_phase(x, card, backend="nccl"):
             del served, plain_f32, y, xr, blocks, ref_blocks
         finally:
             dist.destroy_process_group()
+    return launches
+
+
+def sharded_stream_phase(x, card, backend="nccl"):
+    """Phase sharded_stream: the moment-input and staged fits over a mesh
+    (`GramAccumulator`, `fit_from_covariance`, `partial_fit`,
+    `fit_with_checkpoints` and `StackedCorex` with `mesh=`) in a world of
+    one rank on the card, each held bit for bit against its plain form:
+    under the var plan `use_pallas='auto'` turns the kernel off, so the
+    plain forms run with 'never', and the accumulator's 'always' fit
+    against the plain 'always' fit. Returns {path: launches}."""
+    import shutil
+
+    import torch
+    import torch.distributed as dist
+
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.parallel import sharding as S
+    from linearcorex_tpu_torch.parallel.launch import init_local_group
+    from linearcorex_tpu_torch.utils.checkpoint import fit_with_checkpoints
+
+    kw = dict(optimizer="auto", seed=0, tol=FIT_TOL, max_iter=FIT_MAX_ITER)
+
+    def same(a, b):
+        return bool(torch.equal(a.ws, b.ws) and a.tc == b.tc
+                    and a.diagnostics.iters_per_stage.tolist()
+                    == b.diagnostics.iters_per_stage.tolist())
+
+    def gate(label, a, b, launches_a, launches_b):
+        check(same(a, b), f"{label}: the world-of-one mesh form is not the "
+              f"plain form bit for bit (TC {a.tc} against {b.tc})")
+        check(launches_a == launches_b, f"{label}: the mesh form launched "
+              f"the kernel {launches_a} times, the plain form {launches_b}")
+        return dict(tc=a.tc, iters_per_stage=a.diagnostics.iters_per_stage
+                    .tolist(), kernel_launches=launches_a, bitwise=True)
+
+    def accumulate(**acc_kw):
+        acc = lct.GramAccumulator(P, **acc_kw)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(0, N, STREAM_BATCH):
+            acc.update(x[i:i + STREAM_BATCH])
+        end.record()
+        torch.cuda.synchronize()
+        return acc, start.elapsed_time(end) / (N // STREAM_BATCH)
+
+    var_plan = S.ShardingPlan(shard_samples=False, shard_vars=True)
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        init_local_group(backend, 0, 1, os.path.join(tmp, "rendezvous"),
+                         timeout=600.0)
+        try:
+            mesh = S.make_mesh((("var", 1),))
+            data_mesh = S.make_mesh()
+            emit("sharded_stream_world", backend=dist.get_backend(),
+                 world_size=1, init_seconds=time.perf_counter() - t0,
+                 card=card)
+
+            # streaming: ten batches into each accumulator, in turns
+            lct.GramAccumulator(P, mesh=mesh).update(x[:STREAM_BATCH])
+            ms = {"plain": [], "mesh": []}
+            for which in ("plain", "mesh", "mesh", "plain"):
+                acc, per_batch = accumulate(
+                    **({"mesh": mesh} if which == "mesh" else {}))
+                ms[which].append(per_batch)
+                if which == "mesh":
+                    acc_mesh = acc
+                else:
+                    acc_plain = acc
+                del acc
+            check(tuple(acc_mesh._g.shape) == (P, P) and acc_mesh.plan
+                  == var_plan, "the mesh accumulator's state or plan")
+            corr = acc_mesh.correlation()
+            check(torch.equal(corr.full_tensor(), acc_plain.correlation()),
+                  "the mesh accumulator's correlation is not the plain "
+                  "one bit for bit")
+            del corr
+            fits = {}
+            for name, dt, pallas in (("f32", "float32", "never"),
+                                     ("int8", "int8", "never"),
+                                     ("always", "float32", "always")):
+                mine = {} if pallas == "never" else {"use_pallas": pallas}
+                a, n_a, s_a, msgs = counted(lambda: acc_mesh.fit(
+                    n_hidden=M, matmul_dtype=dt, **mine, **kw))
+                b, n_b, s_b, _ = counted(lambda: acc_plain.fit(
+                    n_hidden=M, matmul_dtype=dt, use_pallas=pallas, **kw))
+                check(a._serving_plan == var_plan, f"acc.fit/{name}: plan "
+                      f"{a._serving_plan}")
+                check(not [w for w in msgs if "overflow" in w],
+                      f"acc.fit/{name}: the int8 wrap guard spoke")
+                check(pallas == "never" or n_a > 0,
+                      f"acc.fit/{name}: the kernel never launched")
+                fits[name] = dict(gate(f"acc.fit/{name}", a, b, n_a, n_b),
+                                  mesh_fit_seconds=s_a,
+                                  plain_fit_seconds=s_b)
+                launches[f"sharded_stream_{name}"] = n_a
+                del a, b
+            emit("sharded_stream", plan="var", batches=N // STREAM_BATCH,
+                 batch_rows=STREAM_BATCH, correlation_bitwise=True,
+                 accumulate_ms_per_batch_mesh=ms["mesh"],
+                 accumulate_ms_per_batch_plain=ms["plain"], fits=fits,
+                 card=card)
+            mean_shift = acc_plain._s / float(N)
+            cov = acc_plain._g / float(N) - torch.outer(mean_shift,
+                                                         mean_shift)
+            del acc_mesh, acc_plain
+
+            # the covariance input
+            a, n_a, s_a, _ = counted(lambda: lct.fit_from_covariance(
+                cov, N, M, mesh=mesh, **kw))
+            b, n_b, s_b, _ = counted(lambda: lct.fit_from_covariance(
+                cov, N, M, use_pallas="never", **kw))
+            emit("sharded_stream_covariance", mesh_fit_seconds=s_a,
+                 plain_fit_seconds=s_b, card=card,
+                 **gate("fit_from_covariance", a, b, n_a, n_b))
+            del a, b, cov
+
+            # partial_fit: two calls, the mesh on the first only
+            half = N // 2
+            est = {k: lct.Corex(n_hidden=M, device="cuda", **dict(
+                kw, max_iter=PF_MAX_ITER, **({} if k == "mesh" else {
+                    "use_pallas": "never"}))) for k in ("mesh", "plain")}
+            secs = {"mesh": 0.0, "plain": 0.0}
+            for k in range(2):
+                batch = x[k * half:(k + 1) * half]
+                for which in ("mesh", "plain"):
+                    _, n_l, s, _ = counted(lambda: est[which].partial_fit(
+                        batch, mesh=mesh if which == "mesh" and k == 0
+                        else None))
+                    check(n_l == 0, "partial_fit launched the kernel")
+                    secs[which] += s
+            check(est["mesh"]._partial_acc.mesh is mesh,
+                  "partial_fit did not keep the first call's mesh")
+            emit("sharded_stream_partial_fit", calls=2,
+                 mesh_seconds=secs["mesh"], plain_seconds=secs["plain"],
+                 card=card, **gate("partial_fit", est["mesh"],
+                                   est["plain"], 0, 0))
+            del est
+
+            # checkpoints: whole, cut after stage 2 and resumed, and a mesh
+            # checkpoint resumed on one device
+            class Interrupted(Exception):
+                pass
+
+            def ckpt(path, on_mesh, stop_after=None):
+                stamps = []
+
+                def callback(stage, eps, ws, stats):
+                    torch.cuda.synchronize()
+                    stamps.append(time.perf_counter())
+                    if stage == stop_after:
+                        raise Interrupted
+                extra = {} if on_mesh else {"use_pallas": "never"}
+                model = lct.Corex(n_hidden=M, device="cuda", **kw, **extra)
+                t_0 = time.perf_counter()
+                try:
+                    _, n_l, _, _ = counted(lambda: fit_with_checkpoints(
+                        model, x, os.path.join(tmp, path),
+                        mesh=mesh if on_mesh else None,
+                        sharding_plan=var_plan if on_mesh else None,
+                        stage_callback=callback))
+                except Interrupted:
+                    return None, None
+                check(n_l == 0, f"checkpoint {path} launched the kernel")
+                stage_ms = [1e3 * (b - a) for a, b in
+                            zip([t_0] + stamps, stamps)]
+                return model, stage_ms
+
+            plain, plain_ms = ckpt("plain", False)
+            whole, whole_ms = ckpt("mesh", True)
+            ckpt("cut", True, stop_after=2)
+            shutil.copytree(os.path.join(tmp, "cut"),
+                            os.path.join(tmp, "cut_one"))
+            resumed, _ = ckpt("cut", True)
+            on_one, _ = ckpt("cut_one", False)
+            fields = gate("checkpoint", whole, plain, 0, 0)
+            for label, m_ in (("resumed under the mesh", resumed),
+                              ("resumed on one device", on_one)):
+                check(same(m_, plain), f"checkpoint {label}: not the plain "
+                      f"checkpointed fit bit for bit")
+            emit("sharded_stream_checkpoint", stages=len(whole_ms),
+                 mesh_ms_per_stage=whole_ms, plain_ms_per_stage=plain_ms,
+                 resumed_bitwise=True, resumed_on_one_device_bitwise=True,
+                 card=card, **fields)
+            del plain, whole, resumed, on_one
+
+            # the stack: the var plan against the plain stack whose layer 1
+            # runs 'never' (the plan turns the kernel off there, not in
+            # layer 2), and the data plan against the plain samples stack
+            stack_kw = dict(kw, max_iter=STACK_MAX_ITER, device="cuda")
+            for name, plan, plain_kw in (
+                    ("var", var_plan, {}),
+                    ("data", None, {"moment_strategy": "samples"})):
+                sm = lct.StackedCorex(STACK, **stack_kw)
+                sp = lct.StackedCorex(STACK, **stack_kw, **plain_kw)
+                if name == "var":
+                    sp.layers[0].set_params(use_pallas="never")
+                _, n_a, s_a, _ = counted(lambda: sm.fit(
+                    x, mesh=mesh if name == "var" else data_mesh,
+                    sharding_plan=plan))
+                _, n_b, s_b, _ = counted(lambda: sp.fit(x))
+                check(n_a > 0, f"the {name}-plan stack never launched the "
+                      f"kernel")
+                layers = [gate(f"stack/{name} layer {k + 1}", a, b, 0, 0)
+                          for k, (a, b) in enumerate(zip(sm.layers,
+                                                         sp.layers))]
+                check(n_a == n_b, f"the {name}-plan stack launched the "
+                      f"kernel {n_a} times, the plain stack {n_b}")
+                launches[f"sharded_stream_stack_{name}"] = n_a
+                emit("sharded_stream_stack", plan=name, n_hiddens=STACK,
+                     max_iter=STACK_MAX_ITER, layers=layers,
+                     kernel_launches=n_a, mesh_fit_seconds=s_a,
+                     plain_fit_seconds=s_b,
+                     layer_plans=[str(la._serving_plan)
+                                  for la in sm.layers], card=card)
+                del sm, sp
+        finally:
+            dist.destroy_process_group()
+    return launches
+
+
+def precision_phase(x, card):
+    """Phase precision: matmul_precision on the card. The Σ·Wᵀ product
+    under 'high' must differ from the full-float32 product (TF32 ran) by
+    less than 1e-2 relative, and under 'highest' equal it bit for bit;
+    fit_core at the north-star shape in float32 with 'highest', 'high'
+    and 'bfloat16' in turns (it/s reported); the annealed fit's TC and
+    block share over seeds 0-5 with 'high' against 'highest', reported.
+    Returns {path: launches}."""
+    import numpy as np
+    import torch
+
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.config import CorexConfig
+    from linearcorex_tpu_torch.models.corex import precision_ctx
+    from linearcorex_tpu_torch.ops import moments as Mo
+
+    xs = (x - x.mean(0)) / x.std(0, correction=0)
+    gram = Mo.compute_gram(xs)
+    del xs
+    w0 = torch.as_tensor(np.random.RandomState(0).normal(
+        scale=1 / np.sqrt(P), size=(M, P)), dtype=torch.float32,
+        device="cuda")
+    with Mo.full_f32_matmul():
+        exact = Mo._mm(gram, w0.T)
+    products = {}
+    for value in ("highest", "high", "bfloat16"):
+        with precision_ctx(CorexConfig(matmul_precision=value), "cuda"):
+            got = Mo._mm(gram, w0.T)
+        products[value] = dict(
+            rel_diff=float((got - exact).abs().max() / exact.abs().max()),
+            bitwise_full_f32=bool(torch.equal(got, exact)), out=got)
+    check(products["highest"]["bitwise_full_f32"],
+          "the Σ·Wᵀ product under 'highest' is not the full-float32 one")
+    rel = products["high"]["rel_diff"]
+    check(0 < rel < 1e-2, f"the Σ·Wᵀ product under 'high' is {rel:.3e} off "
+          f"the full-float32 one relative (TF32 should give (0, 1e-2))")
+    bf16_is_tf32 = bool(torch.equal(products["bfloat16"]["out"],
+                                    products["high"]["out"]))
+    for v in products.values():
+        del v["out"]
+
+    variants = ("highest", "high", "bfloat16")
+    rates = {v: [] for v in variants}
+    for turn in (variants, variants[::-1], variants):
+        for value in turn:
+            run, out = fit_core_runner(gram, w0, "float32", "always",
+                                       TIMED_ITERS, precision=value)
+            ms = time_ms(run, reps=1, warmup=not rates[value])
+            rates[value].append(
+                int(out["diag"].iters_per_stage.sum()) / (ms / 1e3))
+    del gram
+
+    launches, basins = {}, {}
+    for value in ("highest", "high"):
+        launches[f"precision_{value}"] = 0
+        basins[value] = []
+        for seed in range(6):
+            model, n_l, secs, _ = north_star_fit(
+                x, seed=seed, optimizer="auto", matmul_precision=value)
+            check(n_l > 0 and np.isfinite(model.tc),
+                  f"precision {value} seed {seed}: launches {n_l}, TC "
+                  f"{model.tc}")
+            launches[f"precision_{value}"] += n_l
+            basins[value].append(dict(
+                seed=seed, tc=model.tc, fit_seconds=secs,
+                iters=int(model.diagnostics.iters_per_stage.sum()),
+                blocks_whole=blocks_whole(model.clusters.cpu().numpy())))
+            del model
+    emit("precision", products=products, bfloat16_product_is_tf32=bf16_is_tf32,
+         it_per_s={v: max(r) for v, r in rates.items()},
+         all_turns=rates, iters=TIMED_ITERS, basins=basins, card=card)
     return launches
 
 
@@ -1600,9 +1922,14 @@ def timed_operands(dev):
             "int8": Mo.quantize_gram(gram)}, w0
 
 
-def fit_core_runner(data, w0, matmul_dtype, use_pallas, iters):
+def fit_core_runner(data, w0, matmul_dtype, use_pallas, iters,
+                    precision="default"):
     """A closure running `iters` fixed-point iterations of fit_core at the
-    north-star shape (anneal=False, tol=0); it stores the diagnostics."""
+    north-star shape (anneal=False, tol=0) at full float32, or in the
+    fit's precision scope for another `precision` (matmul_precision); it
+    stores the diagnostics. The default needs nothing newer than
+    `M.full_f32_matmul`, so compare_chain.py runs it on older checkouts
+    of the package too."""
     from linearcorex_tpu_torch.config import CorexConfig
     from linearcorex_tpu_torch.core.solver import fit_core
     from linearcorex_tpu_torch.models.corex import _make_obj_grad
@@ -1610,12 +1937,19 @@ def fit_core_runner(data, w0, matmul_dtype, use_pallas, iters):
 
     cfg = CorexConfig(n_hidden=M, max_iter=iters, tol=0.0, anneal=False,
                       record_history=False, optimizer="fixed_point",
-                      use_pallas=use_pallas, matmul_dtype=matmul_dtype)
+                      use_pallas=use_pallas, matmul_dtype=matmul_dtype,
+                      matmul_precision=precision)
     obj_grad = _make_obj_grad(data, cfg, "gram")
     out = {}
 
+    def scope():
+        if precision == "default":
+            return Mo.full_f32_matmul()
+        from linearcorex_tpu_torch.models.corex import precision_ctx
+        return precision_ctx(cfg, w0.device)
+
     def run():
-        with Mo.full_f32_matmul():
+        with scope():
             out["diag"] = fit_core(obj_grad, w0, cfg)[1]
     return run, out
 
@@ -1827,6 +2161,8 @@ def main():
     lane_launches.update(mesh_lane_launches)
     del sweep_ref
     launches.update(sharded_vars_phase(x, card))
+    launches.update(sharded_stream_phase(x, card))
+    launches.update(precision_phase(x, card))
 
     # the moment-input and staged fits, at the same width
     native_phase(x, card)

@@ -44,13 +44,18 @@ Differences by design:
   p-sized outputs, which stay split. Each serving call takes this rank's
   block of the state.
 
-Options of the JAX package that are not ported yet (a mesh in the
-moment-input fits, the faster `matmul_precision` values, AOT `warmup`)
-raise NotImplementedError, each naming its ROADMAP.md queue item.
+- `matmul_precision` maps onto torch's float32 matmul precision on a CUDA
+  device (`precision_ctx`): 'default', 'highest' and 'float32' run full
+  float32, 'high' and 'tensorfloat32' TF32, 'bfloat16' torch's "medium"
+  (which cuBLAS serves as TF32 too).
+  On the CPU every value runs full float32, as XLA:CPU does. The JAX
+  package's dot-algorithm names have no counterpart and raise ValueError.
+- AOT `warmup` has nothing to compile here and raises NotImplementedError.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import math
@@ -106,26 +111,47 @@ def _raise_not_fitted(msg):
     raise cls(msg)
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(
-        f"{what} is not ported to the PyTorch package yet (ROADMAP.md "
-        f"Queue 1, {item}); the JAX package linearcorex_tpu supports it")
+# matmul_precision -> torch.set_float32_matmul_precision on a CUDA device
+_PRECISIONS = {"default": "highest", "highest": "highest",
+               "float32": "highest", "high": "high",
+               "tensorfloat32": "high", "bfloat16": "medium"}
 
 
-def _no_mesh(what: str, mesh, sharding_plan=None) -> None:
-    """The moment-input and staged fits and the stack have no mesh form
-    yet (their Σ is kept as row blocks over the variable axis)."""
-    if mesh is not None or sharding_plan is not None:
-        _not_ported(f"{what}(mesh=..., sharding_plan=...)",
-                    "item 17e (moment-input and staged fits over a mesh)")
+def check_precision(cfg: CorexConfig) -> str:
+    """The torch float32 matmul precision of `cfg.matmul_precision` on a
+    CUDA device. Raises ValueError, by name, for a value the port does
+    not run: the JAX package's dot-algorithm names ('BF16_BF16_F32_X3',
+    'TF32_TF32_F32', ...) pick XLA algorithms that have no torch
+    counterpart."""
+    try:
+        return _PRECISIONS[cfg.matmul_precision]
+    except (KeyError, TypeError):
+        raise ValueError(
+            f"matmul_precision={cfg.matmul_precision!r} is not run by the "
+            f"PyTorch port: it takes {tuple(_PRECISIONS)}; the JAX "
+            f"package's dot-algorithm names select XLA dot algorithms, "
+            f"which have no torch counterpart") from None
 
 
-def check_ported(cfg: CorexConfig) -> None:
-    """Raise NotImplementedError, by name, for an option of the JAX
-    package that the port does not run yet."""
-    if cfg.matmul_precision not in ("default", "highest"):
-        _not_ported(f"matmul_precision={cfg.matmul_precision!r}",
-                    "item 1 (config)")
+@contextlib.contextmanager
+def precision_ctx(cfg: CorexConfig, device):
+    """Matmul-precision scope of a fit program (the JAX package's
+    `precision_ctx`): on a CUDA device torch's float32 matmul precision
+    is set per `cfg.matmul_precision` ('default' keeps full float32,
+    'high' runs TF32 products, 'bfloat16' torch's "medium"), on the CPU
+    it is full float32 whatever the value. The caller's setting comes
+    back on exit, an exception included. Scopes that must stay exact
+    (the Gram build, the accumulation, the int8 wrap guard, the spectral
+    init) nest `M.full_f32_matmul` inside it."""
+    want = check_precision(cfg)
+    if torch.device(device).type != "cuda":
+        want = "highest"
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision(want)
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
 
 
 def resolve_optimizer(cfg: CorexConfig, nv: int,
@@ -298,25 +324,40 @@ def _fit_program(data, w0, cfg: CorexConfig, strategy: str, model=None):
     Returns (ws, Moments, FitDiagnostics). W0 of shape (k, m, p) fits k
     restart lanes and returns each with a leading lane axis.
 
+    One fit runs in `precision_ctx(cfg)`. Restart lanes run at full
+    float32 whatever `matmul_precision` says, as the JAX package's
+    restart program applies no precision scope.
+
     Split W (`parallel.sharding`): `w0` is this rank's block, its columns
     over the operand's `var` axis, its rows over `model`. The solve runs
     on the blocks; the final W and moments are gathered whole before the
     sort, so the result is whole on every rank."""
-    sp = M.Split(M.var_of(data), model)
-    with M.full_f32_matmul():
+    scope = M.full_f32_matmul() if w0.ndim == 3 else precision_ctx(
+        cfg, w0.device)
+    with scope:
         ws, diag = fit_core(_make_obj_grad(data, cfg, strategy, model), w0,
-                            cfg, sp.w_axes)
-        zero = torch.zeros((), dtype=w0.dtype, device=w0.device)
-        if strategy == "gram":
-            c_xy = M.cxy_gram(data, ws, zero)
-        else:
-            c_xy = M.cxy_samples(data, ws, zero)
-        mom = M.moments_from_cxy(ws, c_xy, cfg.y_scale, cfg.rho_clip,
-                                 *sp)
-        if sp.w_axes:
-            ws, mom = sp.whole_w(ws), M.whole_moments(mom, *sp)
-        ws_sorted, order = sort_by_tcs(ws, mom.tcs)
-        return ws_sorted, M.permute_moments(mom, order), diag
+                            cfg, M.Split(M.var_of(data), model).w_axes)
+        ws_sorted, mom = final_moments(data, ws, cfg, strategy, model)
+        return ws_sorted, mom, diag
+
+
+def final_moments(data, ws, cfg: CorexConfig, strategy: str, model=None):
+    """The end of every fit: the moments at eps = 0 from the final W, then
+    the factor sort by TCs. Returns (sorted ws, Moments), whole on every
+    rank: under a split (`ws` this rank's block, as in `_fit_program`)
+    the split moment functions run and W and the moments are gathered
+    before the sort."""
+    sp = M.Split(M.var_of(data), model)
+    zero = torch.zeros((), dtype=ws.dtype, device=ws.device)
+    if strategy == "gram":
+        c_xy = M.cxy_gram(data, ws, zero)
+    else:
+        c_xy = M.cxy_samples(data, ws, zero)
+    mom = M.moments_from_cxy(ws, c_xy, cfg.y_scale, cfg.rho_clip, *sp)
+    if sp.w_axes:
+        ws, mom = sp.whole_w(ws), M.whole_moments(mom, *sp)
+    ws_sorted, order = sort_by_tcs(ws, mom.tcs)
+    return ws_sorted, M.permute_moments(mom, order)
 
 
 def _spectral_init(data, omega, strategy: str, matmul_dtype: str):
@@ -1066,7 +1107,7 @@ class Corex:
                 f"fit(x, init_ws=...); y is the ignored sklearn target")
         del y
         restarts = self._validated_restarts(init_ws)
-        check_ported(self.config)
+        check_precision(self.config)
         try:
             return self._fit(x, init_ws, mesh, sharding_plan, restarts)
         finally:
@@ -1568,9 +1609,14 @@ class Corex:
         model device and re-solves from the accumulated correlation,
         warm-started from the current weights, so the estimator is usable
         after every call. `fit` resets the accumulation; `partial_fit`
-        continues it. `y` is ignored; `mesh`/`sharding_plan` (the sharded
-        accumulation) are not ported yet and raise NotImplementedError
-        (ROADMAP item 17e).
+        continues it. `y` is ignored.
+
+        `mesh=` (with an optional `shard_vars` `sharding_plan=`) keeps the
+        accumulated state as Σ row blocks over the mesh's `var` axis and
+        solves through `parallel.fit_sharded` (see `GramAccumulator`). The
+        layout binds on the first call of a stream; later calls may omit
+        it, and a different mesh or plan mid-stream raises (compared by
+        value: a mesh rebuilt alike per call is the same layout).
 
         Equivalent to `fit(concat(batches))` with gaussianize='standard'
         up to the W init (identical accumulated moments; the warm start
@@ -1587,8 +1633,7 @@ class Corex:
         accumulated samples."""
         del y
         from linearcorex_tpu_torch.utils.streaming import (
-            GramAccumulator, _no_stream_mesh, _solve_from_moments)
-        _no_stream_mesh("partial_fit", mesh, sharding_plan)
+            GramAccumulator, _solve_from_moments)
         pre = self.pre_config
         if pre.gaussianize != "standard":
             raise ValueError(
@@ -1614,7 +1659,7 @@ class Corex:
                 "lanes have no fresh seeded inits to draw. Set "
                 "n_restarts=1, or run Corex(n_restarts=k).fit on the "
                 "full data.")
-        check_ported(self.config)
+        check_precision(self.config)
         x = self._validate_input(x)        # batches of >= 1 row are legal
         acc = self._partial_acc
         expect = acc.p if acc is not None else self.nv
@@ -1627,12 +1672,25 @@ class Corex:
                 f"{'accumulated' if acc is not None else 'fitted'} state "
                 f"has {expect} (use a fresh estimator — sklearn.clone — "
                 f"to change the width)")
+        if acc is not None and (
+                (mesh is not None and mesh != acc.mesh)
+                or (sharding_plan is not None
+                    and sharding_plan != acc.plan)):
+            raise ValueError(
+                "partial_fit received a different mesh/sharding_plan "
+                "mid-stream; the accumulation layout binds on the first "
+                "call (resharding a live accumulation would hide a "
+                "wrong-mesh fault) — finish the stream, or start a fresh "
+                "one (fit resets it, or use a new estimator)")
         if acc is None:
             acc = GramAccumulator(x.shape[1], dtype=self.config.dtype,
-                                  device=self._device)
+                                  device=self._device, mesh=mesh,
+                                  sharding_plan=sharding_plan)
         # host arrays were screened for NaN/inf above: hand the
-        # accumulator a tensor, so update() does not scan them again
-        acc.update(self._as_tensor(x))
+        # accumulator a tensor, so update() does not scan them again.
+        # Under a mesh a host batch stays on the host: update() copies
+        # only this rank's columns to the device.
+        acc.update(self._as_tensor(x) if acc.mesh is None else x)
         self._partial_acc = acc   # commit before solving: the batch is
         #                           folded in even if this call cannot
         #                           solve yet (one sample, below)
@@ -1647,7 +1705,7 @@ class Corex:
             warm = None   # stale shape (n_hidden changed via set_params)
         corr, mean, std = acc._moments()
         _solve_from_moments(self, corr, mean, std, acc.n_samples,
-                            init_ws=warm)
+                            init_ws=warm, mesh=acc.mesh, plan=acc.plan)
         if self.verbose:
             self._print_verbose()
         return self

@@ -1,6 +1,6 @@
 """Stacked (multi-layer) Linear CorEx.
 
-Port of `linearcorex_tpu/models/stacked.py`, single-device. Hierarchical
+Port of `linearcorex_tpu/models/stacked.py`. Hierarchical
 factor discovery fits a second Corex on the first layer's latent factors.
 Layers are sequential fits, so this is composition at the API level: `fit`
 trains layer k on layer k-1's `transform` output; `transform` composes
@@ -11,9 +11,10 @@ the layers' device.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import List, Sequence
 
-from linearcorex_tpu_torch.models.corex import Corex, _no_mesh
+from linearcorex_tpu_torch.models.corex import Corex
 
 __all__ = ["StackedCorex"]
 
@@ -24,8 +25,8 @@ class StackedCorex:
     Layer 1 takes the user's preprocessing options; deeper layers always
     standardize their (already continuous, roughly Gaussian) factor
     inputs. Every other argument, `device` included, reaches every layer.
-    `mesh`/`sharding_plan` belong to the JAX package's sharded layers and
-    raise NotImplementedError.
+    `mesh`/`sharding_plan` reach every layer's fit and serving calls; the
+    plan's `var` and factor axes apply to layer 1 only (`_layer_plan`).
     """
 
     def __init__(self, n_hiddens: Sequence[int], **corex_kwargs):
@@ -40,49 +41,85 @@ class StackedCorex:
                 Corex(n_hidden=m, **(corex_kwargs if k == 0
                                      else deep_kwargs)))
 
+    @staticmethod
+    def _layer_plan(plan, k):
+        """The plan of layer k: the plan's `var` and factor axes describe
+        the p-wide operand of layer 1 only. Deeper layers take narrow (n,
+        m_k) factor matrices that need not divide those mesh extents (and
+        gain nothing from them), so they keep just the sample axes, which
+        divide by construction (n is the same down the stack)."""
+        if k == 0 or plan is None or not (plan.shard_vars
+                                          or plan.shard_factors):
+            return plan
+        return dataclasses.replace(plan, shard_vars=False,
+                                   shard_factors=False)
+
     def fit(self, x, y=None, mesh=None, sharding_plan=None):
         """Fit layer by layer; `y` is accepted and ignored (unsupervised:
-        the sklearn slot, as in `Corex.fit`)."""
+        the sklearn slot, as in `Corex.fit`). `mesh`/`sharding_plan` reach
+        each layer's `Corex.fit(mesh=...)` and the transform between
+        layers, so a `shard_vars` stack never holds the p-wide X whole on
+        one device."""
         del y
-        _no_mesh("StackedCorex.fit", mesh, sharding_plan)
         data = x
-        for layer in self.layers:
-            layer.fit(data)
-            data = layer.transform(data)
+        for k, layer in enumerate(self.layers):
+            lp = self._layer_plan(sharding_plan, k)
+            layer.fit(data, mesh=mesh, sharding_plan=lp)
+            if mesh is not None and sharding_plan is None \
+                    and layer._serving_plan is None:
+                # a restart-only sweep: the mesh carries no serving axes,
+                # so the transform between layers runs on each rank's own
+                # device, as Corex.fit_transform does; an explicit plan is
+                # honored (and fails its validation by name)
+                data = layer.transform(data)
+            else:
+                data = layer.transform(data, mesh=mesh, sharding_plan=lp)
         return self
 
     def transform(self, x, level: int = -1, mesh=None, sharding_plan=None):
-        """Factors at `level` (default: the deepest layer)."""
-        _no_mesh("StackedCorex.transform", mesh, sharding_plan)
+        """Factors at `level` (default: the deepest layer); `mesh` serves
+        each layer's projection over the mesh (`Corex.transform`)."""
         levels = range(len(self.layers)) if level == -1 \
             else range(level + 1)
         data = x
         for k in levels:
-            data = self.layers[k].transform(data)
+            data = self.layers[k].transform(
+                data, mesh=mesh,
+                sharding_plan=self._layer_plan(sharding_plan, k))
         return data
 
     def fit_transform(self, x, y=None, mesh=None, sharding_plan=None):
         """sklearn convention: fit the stack, return the deepest factors
-        (`y` ignored)."""
+        (`y` ignored); `mesh`/`sharding_plan` reach the fit and the final
+        transform."""
         del y
         self.fit(x, mesh=mesh, sharding_plan=sharding_plan)
-        return self.transform(x)
+        if mesh is not None and sharding_plan is None and all(
+                layer._serving_plan is None for layer in self.layers):
+            # a restart-only sweep (see fit): transform on each rank
+            return self.transform(x)
+        return self.transform(x, mesh=mesh, sharding_plan=sharding_plan)
 
     def transform_all(self, x, mesh=None, sharding_plan=None):
         """List of factor matrices, one per layer (shallow → deep)."""
-        _no_mesh("StackedCorex.transform_all", mesh, sharding_plan)
         out, data = [], x
-        for layer in self.layers:
-            data = layer.transform(data)
+        for k, layer in enumerate(self.layers):
+            data = layer.transform(
+                data, mesh=mesh,
+                sharding_plan=self._layer_plan(sharding_plan, k))
             out.append(data)
         return out
 
     def predict(self, y, mesh=None, sharding_plan=None):
-        """Reconstruct the input from the deepest factors."""
-        _no_mesh("StackedCorex.predict", mesh, sharding_plan)
+        """Reconstruct the input from the deepest factors. Under `mesh`
+        the (n, p) reconstruction comes back per the plan
+        (`Corex.predict`: a `DTensor` split over `var` under `shard_vars`)."""
         data = y
-        for layer in reversed(self.layers):
-            data = layer.predict(data)
+        last = len(self.layers) - 1
+        for i, layer in enumerate(reversed(self.layers)):
+            data = layer.predict(
+                data, mesh=mesh,
+                sharding_plan=self._layer_plan(sharding_plan, last - i))
         return data
 
     def inverse_transform(self, y, mesh=None, sharding_plan=None):

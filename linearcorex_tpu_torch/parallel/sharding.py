@@ -74,9 +74,9 @@ from linearcorex_tpu_torch.parallel.collectives import (Axis, all_reduce,
                                                         shard_index)
 
 __all__ = ["ShardingPlan", "make_mesh", "make_hybrid_mesh", "fit_sharded",
-           "fit_shard_map", "operand_specs", "validate_plan_shapes",
-           "resolve_sharded_config", "shard_block", "shard_w", "as_dtensor",
-           "all_reduce", "collective_counts",
+           "fit_shard_map", "finish_sharded", "operand_specs",
+           "validate_plan_shapes", "resolve_sharded_config", "shard_block",
+           "shard_w", "as_dtensor", "all_reduce", "collective_counts",
            "reset_collective_counts", "SLICE_AXIS", "DATA_AXIS", "VAR_AXIS",
            "FACTOR_AXIS"]
 
@@ -260,7 +260,22 @@ def shared_seed(seed, mesh, device) -> int:
     if seed is not None:
         return seed
     base = int(np.random.SeedSequence().generate_state(1)[0] % (2 ** 31))
-    return broadcast_int(base, int(mesh.mesh.flatten()[0]), device)
+    return broadcast_int(base, mesh_first_rank(mesh), device)
+
+
+def mesh_first_rank(mesh) -> int:
+    """The rank (in the default process group) of the mesh's first
+    device: the one rank that acts for the mesh where exactly one must
+    (a shared seed's draw, a checkpoint file's write)."""
+    return int(mesh.mesh.flatten()[0])
+
+
+def mesh_barrier(mesh, device) -> None:
+    """Return once every rank of `mesh` has called this: one one-element
+    SUM `all_reduce` over each mesh axis in turn (a rank leaves the last
+    only after every rank has entered the first)."""
+    all_reduce(torch.zeros(1, device=device),
+               [mesh_axis(mesh, name) for name in mesh.mesh_dim_names])
 
 
 def mesh_axis(mesh, name: str) -> Axis:
@@ -583,7 +598,34 @@ def fit_sharded(data, w0, cfg: CorexConfig, mesh,
     `quantize_samples`' own guard); pass check_overflow=False only when
     the same operand was already guarded, as `Corex.fit(mesh=...)` does.
     """
-    from linearcorex_tpu_torch.models.corex import _fit_program, torch_dtype
+    from linearcorex_tpu_torch.models.corex import _fit_program
+    data, w_local, model, cfg = _sharded_operands(
+        data, w0, cfg, mesh, plan, strategy, n_samples, check_overflow)
+    return _fit_program(data, w_local, cfg, strategy, model=model)
+
+
+def finish_sharded(data, ws, cfg: CorexConfig, mesh,
+                   plan: ShardingPlan = ShardingPlan(),
+                   strategy: str = "samples", n_samples=None):
+    """The end of `fit_sharded` on its own: the moments at eps = 0 from
+    the whole `ws` and the factor sort, each rank on its block of the
+    operand and of W laid out as `fit_sharded` lays them out, in the fit's
+    precision scope. Returns (sorted ws, Moments), whole and the same
+    bits on every rank. The staged fit (`utils.checkpoint`) runs its
+    stages through `fit_sharded` and ends here."""
+    from linearcorex_tpu_torch.models.corex import (final_moments,
+                                                    precision_ctx)
+    data, w_local, model, cfg = _sharded_operands(
+        data, ws, cfg, mesh, plan, strategy, n_samples, False)
+    with precision_ctx(cfg, w_local.device):
+        return final_moments(data, w_local, cfg, strategy, model)
+
+
+def _sharded_operands(data, w0, cfg, mesh, plan, strategy, n_samples,
+                      check_overflow):
+    """(this rank's operand, its block of W0, the `model` Axis or None,
+    the config resolved against the mesh) for `fit_sharded`."""
+    from linearcorex_tpu_torch.models.corex import torch_dtype
     device = check_mesh(mesh)
     if M.is_quantized(data) and check_overflow:
         M._check_int8_wrap(data)
@@ -605,5 +647,4 @@ def fit_sharded(data, w0, cfg: CorexConfig, mesh,
     else:
         data = shard_samples(data, sample_axes(mesh, plan), device, host_dt,
                              var)
-    return _fit_program(data, shard_w(w0, var, model, device, dt), cfg,
-                        strategy, model=model)
+    return data, shard_w(w0, var, model, device, dt), model, cfg

@@ -1,6 +1,6 @@
 """Checkpoint and resume for fitted Corex state.
 
-Port of `linearcorex_tpu/utils/checkpoint.py`, single-device. The learned
+Port of `linearcorex_tpu/utils/checkpoint.py`. The learned
 state (ws, theta, moments, config) is one flat dict of arrays saved as a
 portable `.npz`, so a fit can be resumed (`Corex.fit(init_ws=...)` keeps
 its warm-start semantics), inference can run without refitting, and long
@@ -24,13 +24,16 @@ import warnings
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from linearcorex_tpu_torch.config import CorexConfig, PreprocessConfig
-from linearcorex_tpu_torch.core.solver import FitDiagnostics, sort_by_tcs
+from linearcorex_tpu_torch.core.solver import FitDiagnostics
 from linearcorex_tpu_torch.models.corex import (Corex, _fit_program,
-                                                _no_mesh, _subsample_rows,
+                                                _subsample_rows,
+                                                check_precision,
+                                                final_moments, precision_ctx,
                                                 stage_subsample_active)
-from linearcorex_tpu_torch.ops import moments as M
+from linearcorex_tpu_torch.parallel import sharding as S
 from linearcorex_tpu_torch.utils.interop import corex_from_numpy
 
 __all__ = ["save_corex", "load_corex", "fit_with_checkpoints"]
@@ -161,15 +164,22 @@ def fit_with_checkpoints(model: Corex, x, ckpt_dir: str, init_ws=None,
     from stale weights. Finishes by populating `model` exactly as
     `Corex.fit` does (final moments, sorted factors) and returns it.
 
-    `mesh`/`sharding_plan` belong to the JAX package's sharded stages and
-    raise NotImplementedError here.
+    `mesh` (with an optional `sharding_plan`) runs every stage through
+    `parallel.fit_sharded`, as `Corex.fit(mesh=...)` runs its fit, every
+    rank making this call with the same arguments. The stage weights come
+    back whole, so the file does not depend on the layout: a mesh
+    checkpoint resumes on one device and the other way round. Exactly one
+    rank, the mesh's first, writes the file (to a temporary name, then
+    `os.replace`), and every rank waits for the write before it goes on;
+    every rank reads the file on a resume. stage_subsample < 1 has no mesh
+    form and raises.
 
     `stage_callback(stage, eps, ws, stats)` runs on the host after each
-    stage. `stats` is the dict of per-stage arrays accumulated so far
+    stage, on every rank of a mesh (each rank is its own process). `stats`
+    is the dict of per-stage arrays accumulated so far
     (iters/tc/delta/obj/hist); return values are ignored; exceptions
     propagate (the checkpoint of the completed stage is already on disk).
     """
-    _no_mesh("fit_with_checkpoints", mesh, sharding_plan)
     if model._validated_restarts(init_ws) != 1:
         raise ValueError(
             "n_restarts > 1 is not supported by fit_with_checkpoints: "
@@ -177,14 +187,30 @@ def fit_with_checkpoints(model: Corex, x, ckpt_dir: str, init_ws=None,
             "at a time on a single lane. Run Corex(n_restarts=k).fit "
             "without checkpoints, or checkpoint k seeded single-restart "
             "fits (seed=s+r) and keep the best TC.")
-
+    check_precision(model.config)
+    plan = None
+    if mesh is not None:
+        plan = sharding_plan or S.ShardingPlan()
+        S.check_mesh(mesh, model._device)
     os.makedirs(ckpt_dir, exist_ok=True)
-    state_path = os.path.join(ckpt_dir, "stage_state.npz")
+    try:
+        if mesh is not None:
+            model._mesh_seed = S.shared_seed(model.seed, mesh,
+                                             model._device)
+        return _fit_staged(model, x, ckpt_dir, init_ws, mesh, plan,
+                           stage_callback)
+    finally:
+        model._mesh_seed = None
 
+
+def _fit_staged(model, x, ckpt_dir, init_ws, mesh, plan, stage_callback):
+    """`fit_with_checkpoints` once the layout is settled."""
+    state_path = os.path.join(ckpt_dir, "stage_state.npz")
     # coerced here for the fingerprint's shape and sample only: the one
     # scan for NaN/inf is `_prepare_fit`'s
     x = model._coerce_2d(x)
-    data, cfg, strategy = model._prepare_fit(x)
+    data, cfg, strategy = model._prepare_fit(x, resolve=mesh is None,
+                                             plan=plan, mesh=mesh)
     schedule = cfg.anneal_schedule()
     fingerprint = _fit_fingerprint(model, x, schedule)
     n_stages = len(schedule)
@@ -226,8 +252,16 @@ def fit_with_checkpoints(model: Corex, x, ckpt_dir: str, init_ws=None,
     # deterministic stride slice, so a resumed run rebuilds the identical
     # stage inputs.
     sub_active = stage_subsample_active(cfg, strategy)
+    if sub_active and mesh is not None:
+        raise ValueError(
+            "stage_subsample < 1 is not supported under "
+            "fit_with_checkpoints(mesh=...): a stride slice of the "
+            "sharded sample axis would leave the ranks with unequal row "
+            "blocks mid-fit. Set stage_subsample=1, or checkpoint "
+            "single-device.")
     data_sub = (_subsample_rows(data, cfg.stage_subsample) if sub_active
                 else data)
+    writer = mesh is None or S.mesh_first_rank(mesh) == dist.get_rank()
     for s in range(start_stage, n_stages):
         # this stage's tol, taken from the schedule (stage_tol_factor
         # loosens the non-final stages): the stage program's length-1
@@ -236,29 +270,42 @@ def fit_with_checkpoints(model: Corex, x, ckpt_dir: str, init_ws=None,
         # is realized here by the choice of operand.
         stage_cfg = dataclasses.replace(cfg, eps_override=schedule[s],
                                         tol=tols[s], stage_subsample=1.0)
-        stage_data = data if (not sub_active or s == n_stages - 1) \
-            else data_sub
-        ws, _, diag = _fit_program(stage_data, ws, stage_cfg, strategy)
+        if mesh is not None:
+            # check_overflow=False: _prepare_fit guarded this operand
+            ws, _, diag = S.fit_sharded(data, ws, stage_cfg, mesh, plan,
+                                        strategy, n_samples=model.n_samples,
+                                        check_overflow=False)
+        else:
+            stage_data = data if (not sub_active or s == n_stages - 1) \
+                else data_sub
+            ws, _, diag = _fit_program(stage_data, ws, stage_cfg, strategy)
         stats["iters"][s] = int(diag.iters_per_stage[0])
         stats["tc"][s], stats["delta"][s], stats["obj"][s] = torch.stack(
             [diag.tc_per_stage[0], diag.delta_per_stage[0],
              diag.objective_per_stage[0]]).tolist()
         if cfg.record_history:
             stats["hist"][s] = _host(diag.tc_history[0])
-        np.savez(state_path, ws=_host(ws), stage=s + 1,
-                 fingerprint=fp_arr, **stats)
+        if writer:
+            # a whole file or none: a preempted write leaves the last one
+            tmp = os.path.join(ckpt_dir, "stage_state.tmp.npz")
+            np.savez(tmp, ws=_host(ws), stage=s + 1, fingerprint=fp_arr,
+                     **stats)
+            os.replace(tmp, state_path)
+        if mesh is not None:
+            S.mesh_barrier(mesh, ws.device)
         if stage_callback is not None:
             stage_callback(s, schedule[s], ws, stats)
 
     # finish exactly as Corex.fit does: full moments at eps = 0 and the
     # factor sort (no further solver steps)
-    with M.full_f32_matmul():
-        zero = torch.zeros((), dtype=ws.dtype, device=ws.device)
-        c_xy = (M.cxy_gram(data, ws, zero) if strategy == "gram"
-                else M.cxy_samples(data, ws, zero))
-        mom = M.moments_from_cxy(ws, c_xy, cfg.y_scale, cfg.rho_clip)
-        model.ws, order = sort_by_tcs(ws, mom.tcs)
-        model.moments = M.permute_moments(mom, order)
+    if mesh is not None:
+        model.ws, model.moments = S.finish_sharded(
+            data, ws, cfg, mesh, plan, strategy, n_samples=model.n_samples)
+    else:
+        with precision_ctx(cfg, ws.device):
+            model.ws, model.moments = final_moments(data, ws, cfg,
+                                                    strategy)
+    model._serving_plan = plan   # None: single-device state
     as_t = model._as_tensor
     model.diagnostics = FitDiagnostics(
         iters_per_stage=torch.as_tensor(stats["iters"]),

@@ -220,8 +220,10 @@ def test_resolve_config_per_device():
     ({}, dict(mesh=object(),
               sharding_plan=ShardingPlan(shard_factors=True)),
      RuntimeError, "default process group"),
-    (dict(matmul_precision="high"), {}, NotImplementedError,
-     "ROADMAP.md Queue 1"),
+    # every matmul_precision the JAX package names runs
+    # (tests/test_torch_precision.py), but its dot-algorithm names
+    (dict(matmul_precision="BF16_BF16_F32_X3"), {}, ValueError,
+     "dot-algorithm"),
 ])
 def test_unported_options_raise(kwargs, fit_kwargs, error, text, data):
     c = lct.Corex(n_hidden=4, device="cpu", **kwargs)

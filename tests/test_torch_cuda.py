@@ -532,3 +532,87 @@ def test_a_mesh_is_held_to_its_worlds_backend(tmp_path):
             S.make_mesh(device="cpu")
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("matmul_dtype", ["float32", "int8"])
+def test_moment_input_and_staged_mesh_forms_in_a_world_of_one(
+        tmp_path, matmul_dtype):
+    """One NCCL rank on the card: the mesh accumulator, partial_fit with
+    the mesh on the first call and the mesh checkpointed fit are their
+    plain forms bit for bit (the var plan turns the kernel off, so the
+    plain forms run use_pallas='never'); the accumulator's correlation is
+    bitwise the plain one."""
+    _need_cuda()
+    import torch.distributed as dist
+
+    from linearcorex_tpu_torch.parallel import sharding as S
+    from linearcorex_tpu_torch.parallel.launch import init_local_group
+    from linearcorex_tpu_torch.utils.checkpoint import fit_with_checkpoints
+    x = torch.as_tensor(_small_blocks()[0], dtype=torch.float32,
+                        device="cuda")
+    kw = dict(n_hidden=8, seed=0, max_iter=200, tol=1e-4,
+              matmul_dtype=matmul_dtype)
+
+    def same(a, b):
+        return (torch.equal(a.ws, b.ws) and a.tc == b.tc
+                and torch.equal(a.diagnostics.iters_per_stage,
+                                b.diagnostics.iters_per_stage))
+
+    init_local_group("nccl", 0, 1, str(tmp_path / "rendezvous"),
+                     timeout=120.0)
+    try:
+        mesh = S.make_mesh((("var", 1),))
+        acc, ref = lct.GramAccumulator(x.shape[1], mesh=mesh), \
+            lct.GramAccumulator(x.shape[1])
+        for i in range(0, x.shape[0], 500):
+            acc.update(x[i:i + 500])
+            ref.update(x[i:i + 500])
+        assert torch.equal(acc.correlation().full_tensor(),
+                           ref.correlation())
+        assert same(acc.fit(**kw), ref.fit(use_pallas="never", **kw))
+        a = lct.Corex(device="cuda", **kw)
+        b = lct.Corex(device="cuda", use_pallas="never", **kw)
+        for k, i in enumerate((0, 1000)):
+            a.partial_fit(x[i:i + 1000], mesh=mesh if k == 0 else None)
+            b.partial_fit(x[i:i + 1000])
+        assert same(a, b)
+        assert same(
+            fit_with_checkpoints(lct.Corex(device="cuda", **kw), x,
+                                 str(tmp_path / "mesh"), mesh=mesh,
+                                 sharding_plan=S.ShardingPlan(
+                                     shard_samples=False, shard_vars=True)),
+            fit_with_checkpoints(lct.Corex(device="cuda", use_pallas="never",
+                                           **kw), x, str(tmp_path / "one")))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_matmul_precision_high_runs_tf32_on_the_card():
+    """'high' runs the float32 products in TF32 (the Σ·Wᵀ product moves,
+    by less than 1e-2 relative), 'highest' at full float32 (bitwise the
+    product outside any scope with TF32 off), and a 'high' fit runs and
+    hands the caller's setting back."""
+    _need_cuda()
+    from linearcorex_tpu_torch.config import CorexConfig
+    from linearcorex_tpu_torch.models.corex import precision_ctx
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    a = torch.randn((2048, 2048), generator=gen, device="cuda")
+    b = torch.randn((2048, 64), generator=gen, device="cuda")
+    with TM.full_f32_matmul():
+        exact = a @ b
+    with precision_ctx(CorexConfig(matmul_precision="high"), "cuda"):
+        tf32 = a @ b
+    with precision_ctx(CorexConfig(matmul_precision="highest"), "cuda"):
+        full = a @ b
+    rel = float((tf32 - exact).abs().max() / exact.abs().max())
+    assert 0 < rel < 1e-2
+    assert torch.equal(full, exact)
+    prev = torch.get_float32_matmul_precision()
+    x = torch.as_tensor(_small_blocks()[0], dtype=torch.float32,
+                        device="cuda")
+    c = lct.Corex(n_hidden=8, seed=0, max_iter=200, matmul_precision="high",
+                  device="cuda").fit(x)
+    assert np.isfinite(c.tc)
+    assert torch.get_float32_matmul_precision() == prev

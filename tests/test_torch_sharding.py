@@ -964,8 +964,9 @@ def test_moment_input_entry_points_still_raise_naming_item_17e(tmp_path):
         lambda: stack.predict(np.zeros((4, 1)), mesh=object()),
     ]
     for call in calls:
-        with pytest.raises(NotImplementedError, match="item 17e"):
+        with pytest.raises(RuntimeError, match="default process group"):
             call()
+    assert not (tmp_path / "ckpt").exists()
 
 
 def test_entry_points_without_a_process_group_raise_by_name():

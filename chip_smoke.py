@@ -178,6 +178,29 @@ non-zero and does not print the final line.
              'heldout': each runs the lane kernel, and padded and
              sequential choose the same n_hidden per criterion. Reported:
              whether it is 4, and the walls.
+   warmup    what a fresh process pays at its first call, and what the
+             deploy-time warmups take off it: fresh `python3 -c` processes
+             on the card, each call timed by the wall clock around it and
+             a synchronize. At n = p = 10,000, m = 512: (a) cold, in
+             float32, LINEARCOREX_TPU_CACHE_DIR an empty directory: the
+             first Corex.fit, nvcc's and g++'s seconds within it, and g++
+             alone after it; then in float32 and int8 (b) a new process
+             on that directory: the first and second fits; (c) a new
+             process on another empty directory: Corex.warmup(n, p)
+             (nvcc within it), then the first and second fits. (d)
+             load_corex of (b)'s float32 model, then
+             warmup_serving(model, 4096): the first transform/score of
+             4096 rows against the second. (e) warmup_sweep, then
+             pick_n_hidden at the selection size (max_iter=200 a stage, a
+             cut depth), first against second.
+             Gates: (a) builds the kernel inside its first fit and (b)
+             builds nothing; (c)'s warmup builds and launches the kernel,
+             nothing is built and no file appears after it, and its first
+             fit is (b)'s first fit bit for bit (W, TC, iterations per
+             stage), its save_corex file (b)'s array for array; (e)'s
+             warmup launches the lane kernel, and its sweep is the same
+             sweep run in the script's own process (never warmed) bit
+             for bit.
 7. timing    fit_core iterations/s at p=10k, m=512 (gram, fixed_point,
              anneal=False, tol=0, 200 iterations): float32 with the kernel
              and with the plain chain, bf16 and int8 with the kernel; CUDA
@@ -207,6 +230,7 @@ Before the last line it prints the kernels' summary line and the card's
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -234,6 +258,10 @@ PF_MAX_ITER = 300       # per stage, for the two partial_fit solves
 STACK = [M, 32]
 STACK_TOL_REL = 1e-3    # a stack's layer 2: kernel fit vs plain-chain fit
 STACK_MAX_ITER = 300    # per stage, for the mesh stacks of sharded_stream
+WARMUP_ROWS = 4096      # rows of a serving batch in phase warmup
+# per stage, for phase warmup's sweeps (selection runs 2000, ~29 s a sweep)
+WARMUP_SWEEP_MAX_ITER = 200
+WARMUP_CHILD_TIMEOUT = 600
 # _mm_bf16 on the card vs the exact (float64) product of the bf16-rounded
 # operands, relative to its largest magnitude. The tensor cores' float32
 # accumulation itself is 1.2e-5-2.2e-5 off at K = 10,000 on an H100 (a
@@ -1905,6 +1933,258 @@ def selection(dev, card):
     return launches
 
 
+def warmup_child(spec):
+    """One fresh process of phase warmup, started by `warmup_phase` as
+    `python3 -c "import chip_smoke as C; C.warmup_child(spec)"` with
+    LINEARCOREX_TPU_CACHE_DIR set. Prints one JSON line: the seconds of
+    each step (the wall clock around the call and a synchronize), the
+    chain kernel's launches and the compiles (`utils.build.COMPILES`)
+    within it, and the build directory's files between steps."""
+    t0 = time.perf_counter()
+    import numpy as np
+    import torch
+
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+    from linearcorex_tpu_torch.utils import build
+
+    out = {"import_s": time.perf_counter() - t0}
+    cache = os.environ["LINEARCOREX_TPU_CACHE_DIR"]
+    dev = torch.device("cuda")
+
+    def files():
+        return sorted(os.listdir(cache))
+
+    def timed(fn):
+        ns_chain.launches = ns_chain.lane_launches = 0
+        done = len(build.COMPILES)
+        t = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(s=time.perf_counter() - t, launches=ns_chain.launches,
+                         lane_launches=ns_chain.lane_launches,
+                         compiles=build.COMPILES[done:])
+
+    _, out["context"] = timed(lambda: torch.zeros(1, device=dev))
+    kind = spec["kind"]
+    if kind == "fit":
+        x, out["data"] = timed(lambda: block_data(N, P, BLOCKS, DATA_SEED,
+                                                  dev))
+        kw = dict(n_hidden=M, seed=0, tol=FIT_TOL, max_iter=FIT_MAX_ITER,
+                  optimizer="auto", matmul_dtype=spec["matmul_dtype"],
+                  device="cuda")
+        model = lct.Corex(**kw)
+        out["files_before"] = files()
+        if spec["warm"]:
+            _, out["warmup"] = timed(lambda: model.warmup(N, P))
+            out["files_after_warmup"] = files()
+            check(model.ws is None, "Corex.warmup fitted the model")
+        out["fits"] = []
+        for i in range(spec["fits"]):
+            fitted = model if i == 0 else lct.Corex(**kw)
+            _, rec = timed(lambda: fitted.fit(x))
+            rec.update(tc=fitted.tc, n_iter=fitted.n_iter_)
+            out["fits"].append(rec)
+        out["files_after"] = files()
+        np.savez(spec["bits"], ws=model.ws.cpu().numpy(),
+                 tc=np.float64(model.tc),
+                 iters=model.diagnostics.iters_per_stage.cpu().numpy())
+        lct.save_corex(model, spec["model"])
+        if spec.get("host"):
+            _, out["host_build"] = timed(build.build_host)
+    elif kind == "serve":
+        x, out["data"] = timed(lambda: block_data(
+            WARMUP_ROWS, P, BLOCKS, DATA_SEED + 3, dev))
+        model, out["load"] = timed(lambda: lct.load_corex(spec["model"],
+                                                          device="cuda"))
+        _, out["warmup_serving"] = timed(lambda: lct.warmup_serving(
+            model, WARMUP_ROWS))
+        out["calls"], ys = [], []
+        for _ in range(2):
+            y, rec_t = timed(lambda: model.transform(x))
+            s, rec_s = timed(lambda: model.score(x))
+            check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(s)),
+                  "serving after warmup_serving is not finite")
+            ys.append(y)
+            out["calls"].append(dict(transform=rec_t, score=rec_s))
+        out["repeat_bitwise"] = bool(torch.equal(ys[0], ys[1]))
+    else:
+        x, out["data"] = timed(lambda: block_data(
+            SEL_N, SEL_P, SEL_BLOCKS, DATA_SEED + 2, dev))
+        kw = warmup_sweep_kwargs()
+        _, out["warmup_sweep"] = timed(lambda: lct.warmup_sweep(SEL_N, SEL_P,
+                                                               **kw))
+        out["sweeps"] = []
+        for _ in range(2):
+            (best, scores), rec = timed(lambda: lct.pick_n_hidden(x, **kw))
+            rec.update(best=best, scores=scores.tolist())
+            out["sweeps"].append(rec)
+    out["files_end"] = files()
+    print(json.dumps(out), flush=True)
+
+
+def warmup_sweep_kwargs():
+    """The pick_n_hidden / warmup_sweep arguments of phase warmup's sweeps:
+    the selection phase's padded 'tc' sweep at a cut depth."""
+    return dict(repeat=4, max_n_hidden=8, max_iter=WARMUP_SWEEP_MAX_ITER,
+                seed=0, padded_sweep=True, criterion="tc", device="cuda")
+
+
+def warmup_phase(card):
+    """Phase warmup (see the module docstring): fresh processes on the
+    card, cold, on a warm build directory, and after the warmups; the
+    gates hold the warmed calls to the unwarmed ones bit for bit. Returns
+    ({path: one-lane launches}, {path: lane launches}) of the warmups and
+    the calls after them, counted in those processes."""
+    import numpy as np
+    import torch
+
+    import linearcorex_tpu_torch as lct
+
+    # the unwarmed sweep (e) is held to: this process never warmed one
+    best, scores = lct.pick_n_hidden(
+        block_data(SEL_N, SEL_P, SEL_BLOCKS, DATA_SEED + 2,
+                   torch.device("cuda")), **warmup_sweep_kwargs())
+    sweep_ref = (best, scores.tolist())
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    root = tempfile.mkdtemp(prefix="chip_smoke_warmup_")
+
+    def child(spec, cache):
+        env = dict(os.environ, LINEARCOREX_TPU_CACHE_DIR=cache)
+        env.pop("LINEARCOREX_TPU_NO_COMPILE_CACHE", None)
+        t = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c",
+             f"import chip_smoke as C; C.warmup_child({spec!r})"],
+            cwd=here, env=env, capture_output=True, text=True,
+            timeout=WARMUP_CHILD_TIMEOUT)
+        check(proc.returncode == 0, f"warmup process {spec} failed:\n"
+              f"{proc.stdout[-3000:]}\n{proc.stderr[-5000:]}")
+        rec = json.loads(proc.stdout.strip().splitlines()[-1])
+        rec["process_s"] = time.perf_counter() - t
+        return rec
+
+    def compiled(rec):
+        return [c["what"] for c in rec["compiles"]]
+
+    def seconds(rec, what):
+        return sum(c["seconds"] for c in rec["compiles"]
+                   if c["what"].endswith(what))
+
+    launches, lane_launches, models = {}, {}, {}
+    t_phase = time.perf_counter()
+    # (a) runs once, in float32: (c) on an empty directory times nvcc in
+    # each mode, and (b) of int8 runs on the directory (a) filled
+    cold = os.path.join(root, "cold")
+    os.makedirs(cold)
+    try:
+        for dt in ("float32", "int8"):
+            fresh = os.path.join(root, f"{dt}_warmed")
+            os.makedirs(fresh)
+            path = {k: os.path.join(root, f"{dt}_{k}") for k in "abc"}
+            base = dict(kind="fit", matmul_dtype=dt)
+            if dt == "float32":
+                a = child(dict(base, warm=False, fits=1, host=True,
+                               bits=path["a"] + ".bits.npz",
+                               model=path["a"] + ".npz"), cold)
+                check(compiled(a["fits"][0]) == ["ns_chain.cu"]
+                      and a["fits"][0]["launches"] > 0,
+                      f"{dt} (a): the cold first fit built "
+                      f"{compiled(a['fits'][0])}, not the kernel alone, "
+                      f"or did not run it")
+            b = child(dict(base, warm=False, fits=2,
+                           bits=path["b"] + ".bits.npz",
+                           model=path["b"] + ".npz"), cold)
+            c = child(dict(base, warm=True, fits=2,
+                           bits=path["c"] + ".bits.npz",
+                           model=path["c"] + ".npz"), fresh)
+            models[dt] = path["b"] + ".npz"
+            check(all(not f["compiles"] for f in b["fits"]),
+                  f"{dt} (b): a fit on the warm directory built something")
+            check(compiled(c["warmup"]) == ["ns_chain.cu"],
+                  f"{dt} (c): the warmup built {compiled(c['warmup'])}")
+            check(c["warmup"]["launches"] > 0
+                  and c["warmup"]["lane_launches"] == 0,
+                  f"{dt} (c): the warmup did not launch the kernel")
+            check(all(not f["compiles"] for f in c["fits"])
+                  and c["files_after"] == c["files_after_warmup"],
+                  f"{dt} (c): the fits after the warmup built something")
+            check(all(f["launches"] > 0 for f in b["fits"] + c["fits"]),
+                  f"{dt}: a fit did not run the kernel")
+            ran = "abc" if dt == "float32" else "bc"
+            bits = {k: np.load(path[k] + ".bits.npz") for k in ran}
+            same = {k: all(np.array_equal(bits[k][f], bits["b"][f])
+                           for f in ("ws", "tc", "iters")) for k in ran}
+            check(same["c"], f"{dt} (c): the fit after the warmup differs "
+                  f"from the unwarmed process's fit")
+            saved = {k: np.load(path[k] + ".npz") for k in "bc"}
+            check(sorted(saved["b"].files) == sorted(saved["c"].files)
+                  and all(np.array_equal(saved["b"][f], saved["c"][f])
+                          for f in saved["b"].files),
+                  f"{dt} (c): save_corex of the warmed fit differs")
+            suffix = "" if dt == "float32" else "_int8"
+            launches["warmup_fit" + suffix] = c["warmup"]["launches"]
+            launches["warmed_fit" + suffix] = c["fits"][0]["launches"]
+            emit("warmup", matmul_dtype=dt, n=N, p=P, m=M,
+                 cold=None if dt != "float32" else dict(
+                     first_fit_s=a["fits"][0]["s"],
+                     nvcc_s=seconds(a["fits"][0], ".cu"),
+                     gxx_s_in_fit=seconds(a["fits"][0], ".cpp"),
+                     gxx_alone_s=seconds(a["host_build"], ".cpp"),
+                     context_s=a["context"]["s"], import_s=a["import_s"],
+                     process_s=a["process_s"],
+                     fit_bitwise_warm_dir=same["a"]),
+                 warm_dir=dict(first_fit_s=b["fits"][0]["s"],
+                               second_fit_s=b["fits"][1]["s"],
+                               context_s=b["context"]["s"],
+                               process_s=b["process_s"]),
+                 warmed=dict(warmup_s=c["warmup"]["s"],
+                             warmup_nvcc_s=seconds(c["warmup"], ".cu"),
+                             warmup_launches=c["warmup"]["launches"],
+                             first_fit_s=c["fits"][0]["s"],
+                             second_fit_s=c["fits"][1]["s"],
+                             process_s=c["process_s"]),
+                 tc=b["fits"][0]["tc"], n_iter=b["fits"][0]["n_iter"],
+                 warmed_fit_bitwise=True, saved_model_equal=True,
+                 card=card)
+        cache = cold
+        d = child(dict(kind="serve", model=models["float32"]), cache)
+        check(d["repeat_bitwise"], "(d): two transforms differ")
+        emit("warmup_serving", rows=WARMUP_ROWS, p=P, m=M,
+             load_s=d["load"]["s"], warmup_serving_s=d["warmup_serving"]["s"],
+             first_transform_s=d["calls"][0]["transform"]["s"],
+             second_transform_s=d["calls"][1]["transform"]["s"],
+             first_score_s=d["calls"][0]["score"]["s"],
+             second_score_s=d["calls"][1]["score"]["s"],
+             process_s=d["process_s"], card=card)
+        e = child(dict(kind="sweep"), cache)
+        check(e["warmup_sweep"]["lane_launches"] > 0
+              and e["warmup_sweep"]["launches"] == 0,
+              "(e): warmup_sweep did not run the lane kernel")
+        check(all(not r["compiles"] for r in [e["warmup_sweep"]]
+                  + e["sweeps"]), "(e): the sweep process built something")
+        first = e["sweeps"][0]
+        check((first["best"], first["scores"]) == sweep_ref,
+              f"(e): the warmed sweep chose {first['best']} with scores "
+              f"{first['scores']}, the same sweep in this process "
+              f"{sweep_ref}")
+        lane_launches["warmup_sweep"] = e["warmup_sweep"]["lane_launches"]
+        lane_launches["warmed_sweep"] = first["lane_launches"]
+        emit("warmup_sweep", n=SEL_N, p=SEL_P, max_n_hidden=8, repeat=4,
+             warmup_sweep_s=e["warmup_sweep"]["s"],
+             warmup_lane_launches=e["warmup_sweep"]["lane_launches"],
+             max_iter=WARMUP_SWEEP_MAX_ITER, first_sweep_s=first["s"],
+             second_sweep_s=e["sweeps"][1]["s"], best_n=first["best"],
+             bitwise_unwarmed_sweep=True,
+             process_s=e["process_s"], card=card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("warmup_summary", phase_s=time.perf_counter() - t_phase,
+         launches=launches, lane_launches=lane_launches, card=card)
+    return launches, lane_launches
+
+
 def timed_operands(dev):
     """The north-star operands for the timing and profile phases: the Gram
     matrix of standardized block data in each mode, and a seeded W0."""
@@ -2179,6 +2459,12 @@ def main():
         launches.update(small_streaming(card))
         lane_launches.update(small_restarts(card))
         lane_launches.update(selection(dev, card))
+
+    # the first call of a fresh process, cold, warm and warmed
+    torch.cuda.empty_cache()
+    warm_launches, warm_lane_launches = warmup_phase(card)
+    launches.update(warm_launches)
+    lane_launches.update(warm_lane_launches)
 
     # 7. timing
     operands, w0 = timed_operands(dev)

@@ -15,6 +15,8 @@ It imports torch and never JAX. Usage:
     c = acc.fit(n_hidden=8, seed=0)
     lct.save_corex(c, "model.npz"); c = lct.load_corex("model.npz")
     s = lct.StackedCorex([8, 2], seed=0).fit(x)       # a hierarchy
+    lct.Corex(n_hidden=8, seed=0).warmup(*x.shape)    # at deploy time:
+    lct.warmup_serving(lct.load_corex("model.npz"), 4096)  # build, load
 
 Over several devices (one process per device, `torch.distributed`):
 
@@ -24,11 +26,15 @@ Over several devices (one process per device, `torch.distributed`):
 
 from linearcorex_tpu_torch.config import CorexConfig, PreprocessConfig
 from linearcorex_tpu_torch.models.corex import Corex, NotFittedError
-from linearcorex_tpu_torch.models.selection import pick_n_hidden
+from linearcorex_tpu_torch.models.selection import (pick_n_hidden,
+                                                    warmup_sweep)
 from linearcorex_tpu_torch.models.stacked import StackedCorex
 from linearcorex_tpu_torch.ops.moments import (QuantizedData, quantize_gram,
                                                quantize_samples)
 from linearcorex_tpu_torch.utils.checkpoint import load_corex, save_corex
+from linearcorex_tpu_torch.utils.compile_cache import (ensure_compile_cache,
+                                                       warmup_fit,
+                                                       warmup_serving)
 from linearcorex_tpu_torch.utils.interop import corex_from_numpy
 from linearcorex_tpu_torch.utils.streaming import (GramAccumulator, fit_csv,
                                                    fit_from_covariance)
@@ -45,6 +51,7 @@ __all__ = [
     "QuantizedData",
     "StackedCorex",
     "corex_from_numpy",
+    "ensure_compile_cache",
     "fit_csv",
     "fit_from_covariance",
     "load_corex",
@@ -52,4 +59,7 @@ __all__ = [
     "quantize_gram",
     "quantize_samples",
     "save_corex",
+    "warmup_fit",
+    "warmup_serving",
+    "warmup_sweep",
 ]

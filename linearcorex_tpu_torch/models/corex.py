@@ -50,7 +50,10 @@ Differences by design:
   (which cuBLAS serves as TF32 too).
   On the CPU every value runs full float32, as XLA:CPU does. The JAX
   package's dot-algorithm names have no counterpart and raise ValueError.
-- AOT `warmup` has nothing to compile here and raises NotImplementedError.
+- `warmup` (`utils.compile_cache.warmup_fit`) runs the fit's programs once
+  on synthetic operands, where the JAX package lowers and compiles them
+  without data: it builds and loads what the fit uses, so the first fit of
+  a process pays no build and no first load.
 """
 
 from __future__ import annotations
@@ -78,6 +81,8 @@ from linearcorex_tpu_torch.parallel import restarts as R
 from linearcorex_tpu_torch.parallel import sharding as S
 from linearcorex_tpu_torch.parallel.collectives import all_gather_rows
 from linearcorex_tpu_torch.parallel.sharding import DATA_AXIS, ShardingPlan
+from linearcorex_tpu_torch.utils.compile_cache import (ensure_compile_cache,
+                                                       warmup_fit)
 
 __all__ = ["Corex", "NotFittedError", "resolve_config", "resolve_optimizer",
            "pick_fit_strategy", "resolve_restart_mesh_layout",
@@ -376,11 +381,13 @@ def _spectral_init(data, omega, strategy: str, matmul_dtype: str):
     return q.T.contiguous()
 
 
-def prepare_operand(xp, strategy: str, matmul_dtype: str):
+def prepare_operand(xp, strategy: str, matmul_dtype: str,
+                    check_overflow: bool = True):
     """The solver operand from preprocessed rows: X or its Gram matrix,
     cast to bf16 under matmul_dtype='bfloat16', or quantized with the
     int32 wrap guard under 'int8' (after preprocessing, whose
-    standardized columns the per-tensor scale relies on). `xp` may be a
+    standardized columns the per-tensor scale relies on; a warmup's
+    synthetic operand passes check_overflow=False). `xp` may be a
     `ShardedSamples` block (the mesh-aware prepare): the Gram matrix then
     sums the ranks' partial products and comes out replicated, or as this
     rank's row block of Σ when the columns are split over `var`; the
@@ -391,7 +398,7 @@ def prepare_operand(xp, strategy: str, matmul_dtype: str):
             return data._replace(local=data.local.to(torch.bfloat16))
         return data.to(torch.bfloat16)
     if matmul_dtype == "int8":
-        return M.quantize_samples(data)
+        return M.quantize_samples(data, check_overflow=check_overflow)
     return data
 
 
@@ -894,7 +901,8 @@ class Corex:
                         std=self._as_tensor(np.where(std < 1e-10, 1.0, std)))
         return self._as_tensor(native.empirical_gaussianize(xh)), theta
 
-    def _prepare_fit(self, x, resolve=True, plan=None, mesh=None):
+    def _prepare_fit(self, x, resolve=True, plan=None, mesh=None,
+                     check_overflow=True):
         """Input validation, preprocessing (sets theta/nv/n_samples),
         moment-strategy choice and 'auto' resolution. Returns (data, cfg,
         strategy) with data the solver operand: X or the Gram matrix,
@@ -914,7 +922,9 @@ class Corex:
         is then gathered whole), and the operand comes out as
         `ShardedSamples` (a Gram operand as the sum of the ranks'
         products: replicated, or Σ row blocks under `shard_vars`). The
-        native host route of 'empirical' is skipped under a mesh."""
+        native host route of 'empirical' is skipped under a mesh.
+        check_overflow=False leaves out the int8 wrap guard (a warmup's
+        synthetic operand)."""
         self._partial_acc = None
         x = self._validate_input(x)
         self.n_samples, self.nv = x.shape
@@ -952,15 +962,16 @@ class Corex:
             if axes or var is not None:
                 xp = M.ShardedSamples(local=xp, n_total=self.n_samples,
                                       axes=axes, p_total=self.nv, var=var)
-            return prepare_operand(xp, strategy, cfg.matmul_dtype), cfg, \
-                strategy
+            return prepare_operand(xp, strategy, cfg.matmul_dtype,
+                                   check_overflow), cfg, strategy
         host = self._host_preprocess(x)
         if host is not None:
             xp, self.theta = host
         else:
             xp, self.theta = P.fit_preprocess(
                 self._as_tensor(x), pre.gaussianize, pre.missing_values)
-        return prepare_operand(xp, strategy, cfg.matmul_dtype), cfg, strategy
+        return prepare_operand(xp, strategy, cfg.matmul_dtype,
+                               check_overflow), cfg, strategy
 
     def _resolve_w0(self, init_ws, data=None, strategy=None) -> torch.Tensor:
         """Initial weights: explicit init_ws > shape-matching pretrained
@@ -1106,14 +1117,18 @@ class Corex:
                 f"(n_hidden, n_variables) — pass initial weights as "
                 f"fit(x, init_ws=...); y is the ignored sklearn target")
         del y
-        restarts = self._validated_restarts(init_ws)
-        check_precision(self.config)
+        ensure_compile_cache()
         try:
-            return self._fit(x, init_ws, mesh, sharding_plan, restarts)
+            return self._fit(x, init_ws, mesh, sharding_plan)
         finally:
             self._mesh_seed = None
 
-    def _fit(self, x, init_ws, mesh, sharding_plan, restarts):
+    def _fit(self, x, init_ws, mesh, sharding_plan, check_overflow=True):
+        """The fit after `fit`'s check of `y`; `warmup_fit` runs it on a
+        copy of the model with check_overflow=False (no wrap guard on its
+        synthetic operand)."""
+        restarts = self._validated_restarts(init_ws)
+        check_precision(self.config)
         plan = None
         if mesh is not None:
             plan = sharding_plan or ShardingPlan()
@@ -1135,7 +1150,8 @@ class Corex:
                                           strategy_plan))
                 data, cfg, strategy = self._prepare_fit(
                     x, resolve=False, plan=strategy_plan,
-                    mesh=mesh if strategy_plan is not None else None)
+                    mesh=mesh if strategy_plan is not None else None,
+                    check_overflow=check_overflow)
                 if strategy != "samples":
                     # an explicit moment_strategy='gram' under a sample
                     # plan runs replicated (pick_fit_strategy warned)
@@ -1145,7 +1161,8 @@ class Corex:
                     data_axis=data_axis,
                     serving_plan=plan if data_axis is not None else None)
         data, cfg, strategy = self._prepare_fit(
-            x, resolve=mesh is None, plan=plan, mesh=mesh)
+            x, resolve=mesh is None, plan=plan, mesh=mesh,
+            check_overflow=check_overflow)
         if restarts > 1:
             return self._fit_restart_sweep(data, cfg, strategy, restarts)
         w0 = self._resolve_w0(init_ws, data=data, strategy=strategy)
@@ -1710,13 +1727,15 @@ class Corex:
             self._print_verbose()
         return self
 
-    def warmup(self, *args, **kwargs):
-        """Ahead-of-time compilation of the JAX package's XLA programs:
-        the port runs eagerly and has nothing to compile ahead."""
-        raise NotImplementedError(
-            "warmup compiles the JAX package's XLA programs ahead of time; "
-            "the PyTorch port runs eagerly, with no compiled program to "
-            "warm (ROADMAP.md: utils/compile_cache.py is not ported)")
+    def warmup(self, n_samples, n_variables, mesh=None,
+               sharding_plan=None):
+        """Run the fit's programs once for declared input shapes, on
+        synthetic operands (`utils.compile_cache.warmup_fit`): the first
+        real `fit(X)` of this process on matching shapes then builds and
+        loads nothing. The model stays unfitted. Returns self."""
+        warmup_fit(self, n_samples, n_variables, mesh=mesh,
+                   sharding_plan=sharding_plan)
+        return self
 
     def __repr__(self):
         fitted = "" if self.ws is None else (

@@ -19,8 +19,9 @@ lanes, with its early stop under criterion='tc'.
 With `mesh=` the (candidate, restart) lanes split over the mesh's
 `restart_axis`, and with `data_axis=` the sample rows over that axis too
 (`parallel.restarts.fit_restarts_sharded`); every rank makes the same
-call and gets the same answer. `warmup_sweep` compiles the JAX package's
-XLA program ahead of time and has no counterpart in the eager port.
+call and gets the same answer. `warmup_sweep` runs the padded sweep's
+programs once on synthetic operands at the declared shapes, so that the
+first real sweep of a process builds and loads nothing.
 """
 
 from __future__ import annotations
@@ -42,8 +43,9 @@ from linearcorex_tpu_torch.ops import preprocessing as P
 from linearcorex_tpu_torch.parallel.restarts import (init_restarts,
                                                      restart_batch_runner,
                                                      seed_base)
+from linearcorex_tpu_torch.utils import compile_cache as CC
 
-__all__ = ["pick_n_hidden"]
+__all__ = ["pick_n_hidden", "warmup_sweep"]
 
 _DATA_AXIS_NEEDS_MESH = (
     "data_axis shards the sample rows over a mesh axis — pass "
@@ -211,6 +213,17 @@ def pick_n_hidden(data, repeat: int = 1, max_n_hidden: Optional[int] = None,
     before it preprocesses them). Every rank makes the same
     call and returns the same (best_n, scores); an unseeded sweep draws
     its seed on the mesh's first rank."""
+    return _sweep(data, repeat, max_n_hidden, verbose, tc_gain_tol, dtype,
+                  seed, padded_sweep, criterion, val_fraction, mesh,
+                  restart_axis, data_axis, device, corex_kwargs)
+
+
+def _sweep(data, repeat, max_n_hidden, verbose, tc_gain_tol, dtype, seed,
+           padded_sweep, criterion, val_fraction, mesh, restart_axis,
+           data_axis, device, corex_kwargs, check_overflow=True):
+    """`pick_n_hidden`'s body; `warmup_sweep` runs it with
+    check_overflow=False (no wrap guard on its synthetic operand)."""
+    CC.ensure_compile_cache()
     if repeat < 1:
         raise ValueError(f"repeat must be >= 1, got {repeat}")
     if max_n_hidden is not None and max_n_hidden < 1:
@@ -253,7 +266,7 @@ def pick_n_hidden(data, repeat: int = 1, max_n_hidden: Optional[int] = None,
     # preprocess once (training rows only under 'heldout'); every
     # candidate shares the operand, validation rows the training theta
     xp, theta = P.fit_preprocess(x, gaussianize, missing_values)
-    shared = prepare_operand(xp, strategy, cfg.matmul_dtype)
+    shared = prepare_operand(xp, strategy, cfg.matmul_dtype, check_overflow)
     del x, xp
     if xv is not None:
         xv = P.preprocess(xv, gaussianize, theta, missing_values)
@@ -299,3 +312,44 @@ def pick_n_hidden(data, repeat: int = 1, max_n_hidden: Optional[int] = None,
     if criterion == "heldout":
         best_n = _smallest_within_tol(np.array(scores), tc_gain_tol)
     return best_n, np.array(scores)
+
+
+def warmup_sweep(n_samples: int, n_variables: int, repeat: int = 1,
+                 max_n_hidden: Optional[int] = None, dtype: str = "float32",
+                 criterion: str = "tc", val_fraction: float = 0.2,
+                 mesh=None, restart_axis: str = "restarts",
+                 data_axis: Optional[str] = None, verbose: bool = False,
+                 tc_gain_tol: float = 1e-3, seed: Optional[int] = None,
+                 padded_sweep: bool = True, device: str = "cuda",
+                 **corex_kwargs) -> None:
+    """Run the padded `pick_n_hidden` sweep's programs once for declared
+    shapes, on synthetic operands, so that the first real sweep of this
+    process builds and loads nothing: the selection counterpart of
+    `utils.compile_cache.warmup_fit`.
+
+    Pass the arguments the real `pick_n_hidden(data, ...)` call will use,
+    with `n_samples` / `n_variables` the data's shape (under
+    criterion='heldout' the FULL row count: the sweep splits it). It runs
+    that sweep through `pick_n_hidden`'s own code on synthetic rows, cut
+    to one iteration a stage and with the int8 wrap guard left out: the
+    preprocessing and the operand, one lockstep evaluation of the
+    (candidate x restart) grid as lanes of one solve (the lane kernel on a
+    card), under 'heldout' the scorer of the validation rows, and the
+    choice. `verbose` is ignored (the warmup prints nothing); the other
+    knobs of the selection rule change no program. Only the padded sweep
+    can be warmed: `padded_sweep=False` raises by name. With `mesh` every
+    rank makes this call and the lanes split over `restart_axis` (and the
+    rows over `data_axis`) as in the sweep."""
+    if not padded_sweep:
+        raise ValueError(
+            "warmup_sweep warms the padded one-solve sweep only; "
+            "padded_sweep=False runs one small solve per candidate, each "
+            "warmed by its own first call")
+    dev = resolve_device(device)
+    x = torch.randn((int(n_samples), int(n_variables)),
+                    generator=CC.synthetic_generator(dev),
+                    dtype=torch_dtype(dtype), device=dev)
+    _sweep(x, repeat, max_n_hidden, False, tc_gain_tol, dtype, seed, True,
+           criterion, val_fraction, mesh, restart_axis, data_axis, device,
+           dict(corex_kwargs, max_iter=1), check_overflow=False)
+    CC.synchronize(dev)

@@ -29,6 +29,7 @@ import torch
 from linearcorex_tpu_torch.config import CorexConfig
 from linearcorex_tpu_torch.ops import moments as M
 from linearcorex_tpu_torch.parallel.collectives import all_gather_lanes
+from linearcorex_tpu_torch.utils.compile_cache import ensure_compile_cache
 
 __all__ = ["init_restarts", "fit_restarts", "fit_restarts_sharded",
            "best_restart", "restart_batch_runner", "padded_lanes",
@@ -81,6 +82,7 @@ def fit_restarts(data, w0_batch: torch.Tensor, cfg: CorexConfig,
     data."""
     from linearcorex_tpu_torch.models.corex import (_fit_program,
                                                     resolve_config)
+    ensure_compile_cache()
     if n_samples is None and strategy == "samples":
         n_samples = M.n_rows(data)
     cfg = resolve_config(cfg, w0_batch.shape[-1], w0_batch.device,
@@ -113,6 +115,7 @@ def fit_restarts_sharded(data, w0_batch, cfg: CorexConfig, strategy: str,
                                                     resolve_config,
                                                     torch_dtype)
     from linearcorex_tpu_torch.parallel import sharding as S
+    ensure_compile_cache()
     device = S.check_mesh(mesh)
     if M.is_quantized(data) and check_overflow:
         M._check_int8_wrap(data)

@@ -72,6 +72,7 @@ from linearcorex_tpu_torch.parallel.collectives import (Axis, all_reduce,
                                                         reset_collective_counts,
                                                         shard_count,
                                                         shard_index)
+from linearcorex_tpu_torch.utils.compile_cache import ensure_compile_cache
 
 __all__ = ["ShardingPlan", "make_mesh", "make_hybrid_mesh", "fit_sharded",
            "fit_shard_map", "finish_sharded", "operand_specs",
@@ -543,6 +544,7 @@ def fit_shard_map(x, w0, cfg: CorexConfig, mesh,
     from linearcorex_tpu_torch.models.corex import (_fit_program,
                                                     resolve_config,
                                                     torch_dtype)
+    ensure_compile_cache()
     device = check_mesh(mesh)
     if not cfg.discourage_overlap:
         raise ValueError("fit_shard_map supports discourage_overlap=True "
@@ -599,6 +601,7 @@ def fit_sharded(data, w0, cfg: CorexConfig, mesh,
     the same operand was already guarded, as `Corex.fit(mesh=...)` does.
     """
     from linearcorex_tpu_torch.models.corex import _fit_program
+    ensure_compile_cache()
     data, w_local, model, cfg = _sharded_operands(
         data, w0, cfg, mesh, plan, strategy, n_samples, check_overflow)
     return _fit_program(data, w_local, cfg, strategy, model=model)

@@ -9,7 +9,10 @@ C interface. At first use it is compiled for Hopper into a shared library,
 
 and loaded with `ctypes.CDLL`. The library name carries a hash of the
 source and the flags, so an edited source is rebuilt and an unchanged one
-is reused from `linearcorex_tpu_torch/_build/` (listed in `.gitignore`).
+is reused from the build directory: `linearcorex_tpu_torch/_build/`
+(`BUILD_DIR`, listed in `.gitignore`) unless `LINEARCOREX_TPU_CACHE_DIR`
+moves it or `LINEARCOREX_TPU_NO_COMPILE_CACHE` makes it private to the
+process (`utils.compile_cache` decides, at build time).
 
 The host sources `csrc/gaussianize.cpp` and `csrc/loader.cpp` (the native
 preprocessing kernels and the CSV block reader behind `utils.native`)
@@ -20,7 +23,8 @@ are built the same way into one library, with the flags of the repo's
         gaussianize.cpp loader.cpp
 
 Nothing here runs at import time: the CPU tests import every module of
-the package on machines with no nvcc.
+the package on machines with no nvcc. Every compile this process runs is
+recorded in `COMPILES`.
 """
 
 from __future__ import annotations
@@ -34,6 +38,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from linearcorex_tpu_torch.utils.compile_cache import build_dir
+
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -41,6 +47,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 HOST_SOURCES = ("gaussianize.cpp", "loader.cpp")
 HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+# {'what', 'path', 'seconds'} of every compile this process has run
+COMPILES: list = []
 
 
 def find_nvcc() -> str:
@@ -64,7 +72,7 @@ def find_nvcc() -> str:
 def _library_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"lib{name}_{digest.hexdigest()[:16]}.so"
 
 
 def _compile(out: Path, compiler_cmd, what: str, force: bool) -> dict:
@@ -74,7 +82,7 @@ def _compile(out: Path, compiler_cmd, what: str, force: bool) -> dict:
     compiled."""
     if out.is_file() and not force:
         return {"path": str(out), "seconds": 0.0, "log": ""}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = compiler_cmd(tmp)
     t0 = time.perf_counter()
@@ -87,14 +95,16 @@ def _compile(out: Path, compiler_cmd, what: str, force: bool) -> dict:
             f"{cmd[0]} failed to build {what} (exit {proc.returncode}):\n"
             f"{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)   # atomic: a concurrent loader sees old or new
+    COMPILES.append({"what": what, "path": str(out), "seconds": seconds})
     return {"path": str(out), "seconds": seconds, "log": log}
 
 
 def build(name: str, force: bool = False) -> dict:
-    """Compile csrc/<name>.cu into BUILD_DIR unless an up-to-date library
-    is already there (or `force`). Returns {'path', 'seconds', 'log'}:
-    seconds is 0.0 and log empty when nothing was compiled; log holds
-    nvcc's output, including ptxas's register and shared-memory report."""
+    """Compile csrc/<name>.cu into the build directory unless an
+    up-to-date library is already there (or `force`). Returns {'path',
+    'seconds', 'log'}: seconds is 0.0 and log empty when nothing was
+    compiled; log holds nvcc's output, including ptxas's register and
+    shared-memory report."""
     return _compile(
         _library_path(name),
         lambda tmp: [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
@@ -111,14 +121,14 @@ def _host_library_path() -> Path:
     digest = hashlib.sha256(" ".join(HOST_FLAGS).encode())
     for src in HOST_SOURCES:
         digest.update((CSRC_DIR / src).read_bytes())
-    return BUILD_DIR / f"liblcx_host_{digest.hexdigest()[:16]}.so"
+    return build_dir() / f"liblcx_host_{digest.hexdigest()[:16]}.so"
 
 
 def build_host(force: bool = False) -> dict:
     """Compile the host sources (HOST_SOURCES) into one shared library in
-    BUILD_DIR unless an up-to-date one is already there (or `force`).
-    Same hashed name and atomic replace as `build`, so several processes
-    may build at once. Returns {'path', 'seconds', 'log'}. Raises
+    the build directory unless an up-to-date one is already there (or
+    `force`). Same hashed name and atomic replace as `build`, so several
+    processes may build at once. Returns {'path', 'seconds', 'log'}. Raises
     RuntimeError when there is no g++ or when g++ fails (with its log)."""
     cxx = find_cxx()
     if cxx is None:

@@ -44,6 +44,7 @@ from linearcorex_tpu_torch.ops import moments as M
 from linearcorex_tpu_torch.ops import preprocessing as P
 from linearcorex_tpu_torch.parallel import sharding as S
 from linearcorex_tpu_torch.parallel.collectives import ring_pass
+from linearcorex_tpu_torch.utils.compile_cache import ensure_compile_cache
 
 __all__ = ["GramAccumulator", "fit_from_covariance", "iter_text_blocks",
            "fit_csv"]
@@ -240,6 +241,7 @@ def _solve_from_moments(model, corr, mean, std, n_samples, init_ws=None,
     does. An unseeded model draws its W0 from a seed its ranks share; the
     int8 scale is the maximum over all of Σ; use_pallas='auto' resolves
     against the mesh inside `fit_sharded`."""
+    ensure_compile_cache()   # a moment-input fit may be a process's first
     p = M.n_cols(corr)
     model.n_samples, model.nv = int(n_samples), p
     model.theta = P.Theta(mean=model._as_tensor(mean),

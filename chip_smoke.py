@@ -160,6 +160,26 @@ non-zero and does not print the final line.
              the same W0 with use_pallas='never': the kernel's fit must
              reach the plain chain's TC within 1e-3 relative; iterations
              per stage, walls and clusters of both are reported.
+   default_paths  the paths a user reaches by default, each through
+             Corex(n_hidden=512, seed=0, ...).fit at n = p = 10,000 (n =
+             2,000 for the wide rows), max_iter=300 a stage (a cut depth):
+             the library's own default (optimizer='momentum', gram) in
+             float32 and with matmul_dtype 'int8' and 'bfloat16';
+             dtype='bfloat16' and 'float16' (the chain kernel on float32
+             casts); the n < p regime with optimizer='auto' (samples,
+             momentum) in float32 and int8; the overlap objective on gram
+             and samples (Cholesky, no kernel); 'empirical' and
+             stage_subsample=0.5 (fixed point, kernel); dtype='float64'
+             (cuBLAS and cuSOLVER in float64, no kernel). Gates: TC and W
+             finite, the strategy and optimizer of the row, the kernel
+             launched where the row says and nowhere else, the clusters a
+             partition of p, a second momentum float32, bfloat16 and
+             float64 fit bitwise the first, and the chain wrapper on
+             bfloat16 and float16 operands bitwise the kernel on their
+             float32 casts. Reported: wall, iterations per stage, TC,
+             block share, peak bytes; fit_core ms per iteration of
+             momentum (float32 and bfloat16) against the fixed point, in
+             turns; the phase's seconds.
 6. small     small fits on the card (n=2000, p=256, m=8) against the
              port's float64 CPU fit from the same W0 — same clusters, TC
              within 1e-3 relative: the non-overlap fit through the kernel
@@ -172,6 +192,13 @@ non-zero and does not print the final line.
              ('small_restarts'); streamed, partial_fit in four batches,
              checkpointed and two-layer stacked fits against the float64
              CPU results from the same W0 ('small_streaming').
+             float64_card_vs_cpu: float64 fits on the card against the
+             same fits on the CPU from one W0 (n=2000, p=1024, m=32, 8
+             planted blocks): momentum on gram and on samples and the
+             overlap objective must be step-matched (iterations per stage
+             equal, TC and W within 1e-8); the fixed point is reported
+             with the iteration where the pair parts (its near-singular
+             m x m inverse parts two LAPACKs at this shape).
    selection pick_n_hidden on block data with n=2000, p=1024 and 4
              planted blocks of 256 (max_n_hidden=8, repeat=4,
              max_iter=2000), padded and sequential, criterion 'tc' and
@@ -262,6 +289,11 @@ WARMUP_ROWS = 4096      # rows of a serving batch in phase warmup
 # per stage, for phase warmup's sweeps (selection runs 2000, ~29 s a sweep)
 WARMUP_SWEEP_MAX_ITER = 200
 WARMUP_CHILD_TIMEOUT = 600
+WIDE_N = 2000           # rows of phase default_paths' n < p rows
+DEFAULT_MAX_ITER = 300  # per stage, for phase default_paths (a cut depth)
+F64_TOL = 1e-8          # float64 card fit vs float64 CPU fit, TC and W
+F64_MAX_ITER = 300      # per stage, for phase float64_card_vs_cpu
+F64_GATED = ("momentum_gram", "momentum_samples", "overlap_gram")
 # _mm_bf16 on the card vs the exact (float64) product of the bf16-rounded
 # operands, relative to its largest magnitude. The tensor cores' float32
 # accumulation itself is 1.2e-5-2.2e-5 off at K = 10,000 on an H100 (a
@@ -1710,6 +1742,253 @@ def stacked_phase(x, card):
     return {"stacked": total}
 
 
+# Phase default_paths: the paths a user reaches by default, at full width.
+# Each row: (name, Corex arguments, wide (n = WIDE_N), the strategy and
+# optimizer 'auto' must resolve to, whether the chain kernel runs).
+DEFAULT_PATHS = [
+    ("momentum_f32", {}, False, "gram", "momentum", True),
+    ("momentum_int8", dict(matmul_dtype="int8"), False, "gram", "momentum",
+     True),
+    ("momentum_bf16op", dict(matmul_dtype="bfloat16"), False, "gram",
+     "momentum", True),
+    ("dtype_bfloat16", dict(dtype="bfloat16"), False, "gram", "momentum",
+     True),
+    ("dtype_float16", dict(dtype="float16"), False, "gram", "momentum",
+     True),
+    ("wide_f32", dict(optimizer="auto"), True, "samples", "momentum", True),
+    ("wide_int8", dict(optimizer="auto", matmul_dtype="int8"), True,
+     "samples", "momentum", True),
+    ("overlap_gram", dict(discourage_overlap=False, moment_strategy="gram"),
+     False, "gram", "momentum", False),
+    ("overlap_samples", dict(discourage_overlap=False,
+                             moment_strategy="samples"), False, "samples",
+     "momentum", False),
+    ("empirical", dict(gaussianize="empirical", optimizer="auto"), False,
+     "gram", "fixed_point", True),
+    ("stage_subsample", dict(stage_subsample=0.5, moment_strategy="samples",
+                             optimizer="auto"), False, "samples",
+     "fixed_point", True),
+    ("float64", dict(dtype="float64", optimizer="auto"), False, "gram",
+     "fixed_point", False),
+]
+# the rows run a second time in the same process, which must give the
+# same bits
+DEFAULT_REPEATED = ("momentum_f32", "dtype_bfloat16", "float64")
+
+
+def half_operand_checks():
+    """The chain wrapper on bfloat16 and float16 operands (the dtype
+    fits' C_xy, ry and sqz) must be bitwise the kernel on their float32
+    casts, one lane at the north-star shape and three lanes at (999, 7).
+    Returns the phase line's fields."""
+    import torch
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+
+    shapes = []
+    for lanes, p, m in (((), P, M), ((3,), 999, 7)):
+        ins = [chain_inputs(p, m, seed=1 + lane) for lane in range(
+            lanes[0] if lanes else 1)]
+        args = tuple(torch.stack(t) if lanes else t[0] for t in zip(*ins))
+        for dt in (torch.bfloat16, torch.float16):
+            half = tuple(a.to(dt) for a in args)
+            got = ns_chain(*half, 1 - 1e-6)
+            want = ns_chain(*(a.float() for a in half), 1 - 1e-6)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                check(g.dtype == torch.float32 and torch.equal(g, w),
+                      f"ns_chain on {dt} operands at {lanes + (p, m)} is not "
+                      f"the kernel on their float32 casts bit for bit")
+            shapes.append(dict(shape=list(lanes + (p, m)),
+                               dtype=str(dt).removeprefix("torch.")))
+    return dict(half_operands_bitwise_float32_casts=shapes)
+
+
+def default_paths_phase(x, card):
+    """Phase default_paths: `DEFAULT_PATHS`, each through
+    lct.Corex(n_hidden=512, seed=0, ...).fit at n = p = 10,000 (WIDE_N
+    rows for the wide rows), max_iter=DEFAULT_MAX_ITER a stage. Gates:
+    TC and W finite, the strategy and optimizer of the row, the kernel
+    launched where the row says and nowhere else, the clusters a
+    partition of p, a second fit of the DEFAULT_REPEATED rows bitwise the
+    first, and the chain wrapper on half operands bitwise the kernel on
+    their float32 casts. Reported, not gated: wall, iterations, ms per
+    iteration, TC, block share, peak device bytes. Returns {row:
+    launches}."""
+    import numpy as np
+    import torch
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.models.corex import pick_fit_strategy
+
+    t_phase = time.perf_counter()
+    emit("default_paths_operands", card=card, **half_operand_checks())
+    launches = {}
+    for name, kw, wide, strategy, optimizer, kernel in DEFAULT_PATHS:
+        data = x[:WIDE_N] if wide else x
+        n = data.shape[0]
+
+        def fit():
+            model = lct.Corex(n_hidden=M, seed=0, tol=FIT_TOL,
+                              max_iter=DEFAULT_MAX_ITER, device="cuda", **kw)
+            return model.fit(data)
+
+        model, ran, secs, msgs = counted(fit)
+        peak = torch.cuda.max_memory_allocated()
+        got = (pick_fit_strategy(model.config, n, P),
+               model.resolved_optimizer_)
+        check(got == (strategy, optimizer),
+              f"default_paths {name}: resolved {got}, want "
+              f"{(strategy, optimizer)}")
+        check((ran > 0) == kernel,
+              f"default_paths {name}: {ran} kernel launches, want "
+              f"{'some' if kernel else 'none'}")
+        check(np.isfinite(model.tc) and bool(torch.isfinite(model.ws).all()),
+              f"default_paths {name}: TC {model.tc} or W is not finite")
+        clusters = model.clusters.cpu()
+        check(tuple(clusters.shape) == (P,) and int(clusters.min()) >= 0
+              and int(clusters.max()) < M,
+              f"default_paths {name}: the clusters are not a partition of "
+              f"the {P} variables")
+        launches[name] = ran
+        fields = dict(
+            n=n, p=P, m=M, dtype=str(model.ws.dtype).removeprefix("torch."),
+            strategy=got[0], optimizer=got[1], kernel_launches=ran,
+            fit_seconds=secs, n_iter=model.n_iter_,
+            iters_per_stage=model.diagnostics.iters_per_stage.tolist(),
+            wall_ms_per_iter=1e3 * secs / max(model.n_iter_, 1),
+            tc=model.tc,
+            blocks_whole=blocks_whole(clusters.numpy()), peak_bytes=peak,
+            warnings=sorted(set(msgs)))
+        if name in DEFAULT_REPEATED:
+            again, ran2, secs2, _ = counted(fit)
+            same = (torch.equal(again.ws, model.ws)
+                    and again.tc == model.tc and torch.equal(
+                        again.diagnostics.iters_per_stage,
+                        model.diagnostics.iters_per_stage))
+            check(same and ran2 == ran,
+                  f"default_paths {name}: a second fit in the same process "
+                  f"gave other bits")
+            fields.update(repeat_bitwise=True, repeat_fit_seconds=secs2)
+            del again
+        emit("default_paths", path=name, card=card, **fields)
+        del model
+        torch.cuda.empty_cache()
+    emit("default_paths_timing", card=card, **default_paths_timing(x))
+    emit("default_paths_total", seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches
+
+
+def default_paths_timing(x):
+    """ms per fit_core iteration at the north-star shape (gram, the chain
+    kernel, anneal=False, tol=0, TIMED_ITERS iterations; CUDA events, an
+    untimed warm-up, the variants in turns): the fixed point against the
+    default momentum, in float32, and momentum in dtype='bfloat16'."""
+    import numpy as np
+    import torch
+    from linearcorex_tpu_torch.ops import moments as Mo
+
+    xs = (x - x.mean(0)) / x.std(0, correction=0)
+    gram = Mo.compute_gram(xs)
+    del xs
+    w0 = torch.as_tensor(np.random.RandomState(0).normal(
+        scale=1 / np.sqrt(P), size=(M, P)), dtype=torch.float32,
+        device=x.device)
+    variants = [("fixed_point", "float32"), ("momentum", "float32"),
+                ("momentum", "bfloat16")]
+    ms = {v: [] for v in variants}
+    iters = {}
+    for turn in (variants, variants[::-1], variants):
+        for optimizer, dtype in turn:
+            dt = getattr(torch, dtype)
+            run, out = fit_core_runner(gram.to(dt), w0.to(dt), "float32",
+                                       "always", TIMED_ITERS,
+                                       optimizer=optimizer, dtype=dtype)
+            t = time_ms(run, reps=1, warmup=not ms[(optimizer, dtype)])
+            n_it = int(out["diag"].iters_per_stage.sum())
+            iters[f"{optimizer}/{dtype}"] = n_it
+            ms[(optimizer, dtype)].append(t / n_it)
+    return dict(p=P, m=M, strategy="gram", iters=iters,
+                ms_per_iter={f"{o}/{d}": min(v) for (o, d), v in ms.items()},
+                all_turns={f"{o}/{d}": v for (o, d), v in ms.items()})
+
+
+def float64_card_vs_cpu(card):
+    """Phase float64_card_vs_cpu: float64 fits on the card (cuBLAS,
+    cuSOLVER) against the same fits on the CPU from one seeded W0, at n =
+    2000, p = 1024, m = 32 with 8 planted blocks: the fixed point (gram),
+    momentum (gram and samples) and the overlap objective (gram). Those
+    three pairs must be step-matched: the same iterations per stage, TC
+    and W within F64_TOL. The fixed point is reported with the iteration
+    where the pair parts: with 24 surplus factors its m x m LU inverts a
+    near-singular matrix, which amplifies the last bits in which two
+    LAPACKs differ until an accept flips. The port's float64 CPU fit and
+    the JAX package's part the same way on one CPU at this shape (ROADMAP
+    Queue 3), so it is not held to it."""
+    import numpy as np
+    import linearcorex_tpu_torch as lct
+
+    t_phase = time.perf_counter()
+    rng = np.random.RandomState(5)
+    zs = rng.normal(size=(2000, 8))
+    xs = np.repeat(zs, 128, axis=1) * 0.9 + 0.436 * rng.normal(
+        size=(2000, 1024))
+    ws0 = rng.normal(scale=1 / 32, size=(32, 1024))
+    base = dict(n_hidden=32, dtype="float64", max_iter=F64_MAX_ITER)
+    cases = [("fixed_point_gram", dict(optimizer="fixed_point",
+                                       moment_strategy="gram")),
+             ("momentum_gram", dict(moment_strategy="gram")),
+             ("momentum_samples", dict(moment_strategy="samples")),
+             ("overlap_gram", dict(discourage_overlap=False,
+                                   moment_strategy="gram"))]
+    for name, kw in cases:
+        fits = {}
+        for dev in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            model = lct.Corex(device=dev, **base, **kw).fit(xs, init_ws=ws0)
+            fits[dev] = (model, time.perf_counter() - t0)
+        gpu, cpu = fits["cuda"][0], fits["cpu"][0]
+        iters = (gpu.diagnostics.iters_per_stage.tolist(),
+                 cpu.diagnostics.iters_per_stage.tolist())
+        tc_diff = abs(gpu.tc - cpu.tc)
+        w_diff = float((gpu.ws.cpu() - cpu.ws).abs().max())
+        matched = iters[0] == iters[1] and tc_diff < F64_TOL \
+            and w_diff < F64_TOL
+        emit("float64_card_vs_cpu", path=name, gated=name in F64_GATED,
+             step_matched=matched, iters_per_stage_card=iters[0],
+             iters_per_stage_cpu=iters[1], tc_card=gpu.tc, tc_cpu=cpu.tc,
+             tc_abs_diff=tc_diff, w_max_abs_diff=w_diff, bound=F64_TOL,
+             parts_at=_first_parting(gpu, cpu), card_seconds=fits["cuda"][1],
+             cpu_seconds=fits["cpu"][1], card=card)
+        check(matched or name not in F64_GATED,
+              f"float64 fit '{name}' on the card is not step-matched with "
+              f"the CPU fit (iterations {iters}, TC {tc_diff:.3e}, W "
+              f"{w_diff:.3e} apart; bound {F64_TOL:g})")
+    emit("float64_card_vs_cpu_total", seconds=time.perf_counter() - t_phase,
+         card=card)
+
+
+def _first_parting(a, b):
+    """Where two fits' per-iteration TC histories first differ by more than
+    F64_TOL: {stage, iteration, largest difference before it}, or None."""
+    import numpy as np
+
+    ha, hb = (m.diagnostics.tc_history.cpu().numpy() for m in (a, b))
+    ia, ib = (m.diagnostics.iters_per_stage.tolist() for m in (a, b))
+    worst = 0.0
+    for s, (ka, kb) in enumerate(zip(ia, ib)):
+        k = min(ka, kb)
+        d = np.abs(ha[s, :k] - hb[s, :k])
+        off = np.flatnonzero(d > F64_TOL)
+        if off.size:
+            return dict(stage=s, iteration=int(off[0]),
+                        max_diff_before=max(worst, float(
+                            d[:off[0]].max(initial=0.0))))
+        worst = max(worst, float(d.max(initial=0.0)))
+        if ka != kb:
+            return dict(stage=s, iteration=k, max_diff_before=worst)
+    return None
+
+
 def small_streaming(card):
     """Streamed, partial_fit, checkpointed and stacked fits on the card
     (n=2000, p=256, m=8) against the port's float64 CPU results from the
@@ -2203,8 +2482,10 @@ def timed_operands(dev):
 
 
 def fit_core_runner(data, w0, matmul_dtype, use_pallas, iters,
-                    precision="default"):
-    """A closure running `iters` fixed-point iterations of fit_core at the
+                    precision="default", optimizer="fixed_point",
+                    dtype="float32"):
+    """A closure running `iters` iterations of fit_core (fixed point
+    unless `optimizer` says otherwise; `data` and `w0` in `dtype`) at the
     north-star shape (anneal=False, tol=0) at full float32, or in the
     fit's precision scope for another `precision` (matmul_precision); it
     stores the diagnostics. The default needs nothing newer than
@@ -2216,9 +2497,9 @@ def fit_core_runner(data, w0, matmul_dtype, use_pallas, iters,
     from linearcorex_tpu_torch.ops import moments as Mo
 
     cfg = CorexConfig(n_hidden=M, max_iter=iters, tol=0.0, anneal=False,
-                      record_history=False, optimizer="fixed_point",
+                      record_history=False, optimizer=optimizer,
                       use_pallas=use_pallas, matmul_dtype=matmul_dtype,
-                      matmul_precision=precision)
+                      matmul_precision=precision, dtype=dtype)
     obj_grad = _make_obj_grad(data, cfg, "gram")
     out = {}
 
@@ -2450,12 +2731,14 @@ def main():
     launches.update(partial_fit_phase(x, card))
     launches.update(checkpoint_phase(x, fit_ref, card))
     launches.update(stacked_phase(x, card))
+    launches.update(default_paths_phase(x, card))
     del x
 
     # 6. small fits on the card against the port's float64 CPU fit
     with warnings.catch_warnings():
         warnings.simplefilter("ignore")
         small_fits(card)
+        float64_card_vs_cpu(card)
         launches.update(small_streaming(card))
         lane_launches.update(small_restarts(card))
         lane_launches.update(selection(dev, card))

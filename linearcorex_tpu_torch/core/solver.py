@@ -55,10 +55,31 @@ class FitDiagnostics(NamedTuple):
     eps_schedule: torch.Tensor        # (n_stages,) the schedule the fit ran
 
 
-def _np_dtype(t: torch.Tensor) -> np.dtype:
-    """The numpy dtype of a float32/float64 tensor (host-side step sizes
-    and tolerances are kept in it)."""
-    return np.dtype(str(t.dtype).removeprefix("torch."))
+def _host_dtype(dt: torch.dtype):
+    """(numpy dtype, rounding) for host-side step sizes and tolerances of
+    compute dtype `dt`: they are kept in `dt`, as the JAX package keeps
+    them in the carry. numpy rounds every float16, float32 and float64
+    result to its own dtype, so the rounding is the identity there.
+    bfloat16, which numpy lacks, is held in float32, where a product of
+    two bfloat16 values is exact, and each result is rounded to bfloat16
+    by the rounding: one rounding per operation, as in bfloat16
+    arithmetic."""
+    if dt == torch.bfloat16:
+        return np.dtype(np.float32), _round_bf16
+    return np.dtype(str(dt).removeprefix("torch.")), lambda a: a
+
+
+def _round_bf16(a):
+    """float32 value(s) rounded to the nearest bfloat16, as float32."""
+    r = torch.as_tensor(np.asarray(a, np.float32)).to(torch.bfloat16)
+    return r.to(torch.float32).numpy()[()]
+
+
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A tensor read to the host as numpy; bfloat16, which numpy lacks, as
+    float32 (exactly)."""
+    t = t.cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def _stage(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
@@ -71,13 +92,14 @@ def _stage(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
     heavy-ball momentum (v ← β·v − lr·g, reset to 0 on a rejected step), or
     the damped fixed point ('fixed_point': obj_grad returns ws − Ŵ and the
     plain-GD step becomes (1−γ)·ws + γ·Ŵ)."""
-    npdt = _np_dtype(ws0)
+    npdt, rnd = _host_dtype(ws0.dtype)
     momentum = cfg.optimizer == "momentum"
     fixed_point = cfg.optimizer == "fixed_point"
-    lr = npdt.type(cfg.fp_gamma_init if fixed_point else cfg.lr_init)
-    lr_cap = npdt.type(cfg.fp_gamma_cap if fixed_point else cfg.lr_cap)
-    growth, halve = npdt.type(cfg.lr_growth), npdt.type(cfg.lr_halve)
-    lr_min = npdt.type(cfg.lr_min)
+    lr, lr_cap, growth, halve, lr_min = (rnd(npdt.type(c)) for c in (
+        cfg.fp_gamma_init if fixed_point else cfg.lr_init,
+        cfg.fp_gamma_cap if fixed_point else cfg.lr_cap,
+        cfg.lr_growth, cfg.lr_halve, cfg.lr_min))
+    beta = float(rnd(npdt.type(cfg.momentum_beta)))
     inf = npdt.type(np.inf)
 
     ws = ws0
@@ -87,7 +109,7 @@ def _stage(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
     hist = []
     while it < cfg.max_iter and delta >= tol and lr >= lr_min:
         if momentum:
-            v_new = cfg.momentum_beta * v - float(lr) * g
+            v_new = beta * v - float(lr) * g
             ws_new = ws + v_new
         else:
             ws_new = ws - float(lr) * g
@@ -101,12 +123,12 @@ def _stage(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
             if momentum:
                 v = v_new
             delta = npdt.type(step)
-            lr = min(lr * growth, lr_cap)
+            lr = rnd(min(lr * growth, lr_cap))
         else:
             if momentum:
                 v = torch.zeros_like(v)
             delta = inf
-            lr = lr * halve
+            lr = rnd(lr * halve)
         if cfg.record_history:
             hist.append(tc)
         it += 1
@@ -123,16 +145,17 @@ def _stage_lanes(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
     `_stage` applied to every lane on its own, a lane frozen once its own
     predicate is false, until no lane runs. A frozen lane is evaluated at
     its current W (a no-op step) and its evaluation discarded."""
-    npdt = _np_dtype(ws0)
     dev, dt = ws0.device, ws0.dtype
+    npdt, rnd = _host_dtype(dt)
     k = ws0.shape[0]
     momentum = cfg.optimizer == "momentum"
     fixed_point = cfg.optimizer == "fixed_point"
-    lr = np.full(k, cfg.fp_gamma_init if fixed_point else cfg.lr_init,
-                 dtype=npdt)
-    lr_cap = npdt.type(cfg.fp_gamma_cap if fixed_point else cfg.lr_cap)
-    growth, halve = npdt.type(cfg.lr_growth), npdt.type(cfg.lr_halve)
-    lr_min = npdt.type(cfg.lr_min)
+    lr = rnd(np.full(k, cfg.fp_gamma_init if fixed_point else cfg.lr_init,
+                     dtype=npdt))
+    lr_cap, growth, halve, lr_min = (rnd(npdt.type(c)) for c in (
+        cfg.fp_gamma_cap if fixed_point else cfg.lr_cap, cfg.lr_growth,
+        cfg.lr_halve, cfg.lr_min))
+    beta = float(rnd(npdt.type(cfg.momentum_beta)))
 
     ws = ws0
     f, g, tc = obj_grad(ws0, eps)
@@ -146,11 +169,11 @@ def _stage_lanes(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
             break
         # one transfer to the device: the k step sizes and run flags
         host = torch.as_tensor(np.concatenate([lr, run]).astype(npdt))
-        lr_t, run_t = host.to(dev).split(k)
+        lr_t, run_t = host.to(device=dev, dtype=dt).split(k)
         lr_t, run_t = lr_t[:, None, None], run_t > 0
         run3 = run_t[:, None, None]
         if momentum:
-            v_new = cfg.momentum_beta * v - lr_t * g
+            v_new = beta * v - lr_t * g
             ws_new = torch.where(run3, ws + v_new, ws)
         else:
             ws_new = torch.where(run3, ws - lr_t * g, ws)
@@ -159,7 +182,7 @@ def _stage_lanes(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
                           w_axes, op="max")
         keep = (f_new <= f) & run_t
         # one host read: the k accept flags and the k step sizes
-        flags = torch.stack([keep.to(dt), step]).cpu().numpy()
+        flags = host_numpy(torch.stack([keep.to(dt), step]))
         accept = flags[0] > 0
         keep3 = keep[:, None, None]
         ws = torch.where(keep3, ws_new, ws)
@@ -171,8 +194,8 @@ def _stage_lanes(obj_grad: ObjGrad, cfg: CorexConfig, ws0: torch.Tensor,
         reject = run & ~accept
         delta = np.where(accept, flags[1].astype(npdt),
                          np.where(reject, npdt.type(np.inf), delta))
-        lr = np.where(accept, np.minimum(lr * growth, lr_cap),
-                      np.where(reject, lr * halve, lr)).astype(npdt)
+        lr = rnd(np.where(accept, np.minimum(lr * growth, lr_cap),
+                          np.where(reject, lr * halve, lr)).astype(npdt))
         it = it + run
         if cfg.record_history:
             hist.append(tc)
@@ -194,11 +217,11 @@ def fit_core(obj_grad: ObjGrad, w0: torch.Tensor, cfg: CorexConfig,
     runs k lanes (`_stage_lanes`). `w0` may be this rank's block of W,
     split over the mesh axes `w_axes` (`parallel.collectives.Axis`).
     Returns (ws, FitDiagnostics)."""
-    npdt = _np_dtype(w0)
     dev, dt = w0.device, w0.dtype
+    npdt, rnd = _host_dtype(dt)
     stage = _stage_lanes if w0.ndim == 3 else _stage
-    schedule = np.asarray(cfg.anneal_schedule(), dtype=npdt)
-    tols = np.asarray(cfg.tol_schedule(), dtype=npdt)
+    schedule = rnd(np.asarray(cfg.anneal_schedule(), dtype=npdt))
+    tols = rnd(np.asarray(cfg.tol_schedule(), dtype=npdt))
     ws = w0
     iters, tcs, deltas, objs, hists = [], [], [], [], []
     for eps, tol in zip(schedule, tols):
@@ -210,7 +233,7 @@ def fit_core(obj_grad: ObjGrad, w0: torch.Tensor, cfg: CorexConfig,
         deltas.append(delta)
         objs.append(f)
         hists.append(row)
-    eps_schedule = torch.as_tensor(schedule, device=dev)
+    eps_schedule = torch.as_tensor(schedule, dtype=dt, device=dev)
     if w0.ndim == 3:
         eps_schedule = eps_schedule.expand(w0.shape[0], -1).contiguous()
     diag = FitDiagnostics(

@@ -73,7 +73,7 @@ import torch
 from linearcorex_tpu_torch.config import (CorexConfig, PreprocessConfig,
                                           apply_preset)
 from linearcorex_tpu_torch.core.solver import (FitDiagnostics, fit_core,
-                                               sort_by_tcs)
+                                               host_numpy, sort_by_tcs)
 from linearcorex_tpu_torch.ops import moments as M
 from linearcorex_tpu_torch.ops import preprocessing as P
 from linearcorex_tpu_torch.ops.cuda_moments import chain_supported
@@ -375,6 +375,7 @@ def _spectral_init(data, omega, strategy: str, matmul_dtype: str):
     apply = M._apply_sigma_t(data, matmul_dtype == "bfloat16",
                              strategy == "gram", omega.dtype)
     sp = M.Split(var=M.var_of(data))
+    M.check_factorizable(omega.dtype, "QR")
     with M.full_f32_matmul():
         q, _ = torch.linalg.qr(sp.all_vars(apply(sp.my_vars(omega)))
                                .to(omega.dtype))
@@ -627,15 +628,39 @@ def _cov_rows(z, std, start: int, block: int, z_cols=None, std_cols=None,
     return std[start:start + block, None] * std_cols[None, :] * rows
 
 
-_DTYPES = {"float32": torch.float32, "float64": torch.float64}
+_DTYPES = {"float32": torch.float32, "float64": torch.float64,
+           "bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
 def torch_dtype(name: str) -> torch.dtype:
-    """The compute dtype named by a `dtype=` argument."""
+    """The compute dtype named by a `dtype=` argument: the one place the
+    name is checked. 'bfloat16' and 'float16' run the momentum and
+    gradient fits in that dtype, as the JAX package does; the paths that
+    factorize a matrix raise NotImplementedError there
+    (`ops.moments.check_factorizable`)."""
     if name not in _DTYPES:
-        raise ValueError(f"dtype must be 'float32' or 'float64', got "
+        raise ValueError(f"dtype must be one of {tuple(_DTYPES)}, got "
                          f"{name!r}")
     return _DTYPES[name]
+
+
+def numpy_to_torch(a: np.ndarray):
+    """A host array as torch takes it. NumPy has no bfloat16: a JAX
+    bfloat16 array arrives as an `ml_dtypes.bfloat16` array, which
+    `torch.from_numpy` refuses, so it crosses bit for bit through its
+    16-bit words. A 2-byte void array is what `np.load` makes of a
+    bfloat16 array that `np.save` wrote: the file does not say its type,
+    and it raises ValueError, as in the JAX package. Other arrays pass
+    unchanged."""
+    if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+        if a.dtype.name == "bfloat16":
+            return torch.tensor(a.view(np.int16)).view(torch.bfloat16)
+        raise ValueError(
+            "a 2-byte void array: np.save writes a bfloat16 array so, and "
+            "the file does not record its type, so it cannot be read back "
+            "as bfloat16 (the JAX package's load_corex raises on it too). "
+            "Save a float32 or float16 model instead")
+    return a
 
 
 def resolve_device(device) -> torch.device:
@@ -871,7 +896,7 @@ class Corex:
         """`a` (tensor or array-like) in the model dtype on the model
         device."""
         if not isinstance(a, torch.Tensor):
-            a = np.asarray(a)
+            a = numpy_to_torch(np.asarray(a))
         return torch.as_tensor(a, dtype=self._dt, device=self._device)
 
     def _host_preprocess(self, x):
@@ -1197,7 +1222,7 @@ class Corex:
         iters = d.iters_per_stage.tolist()
         tcs = d.tc_per_stage.tolist()
         deltas = d.delta_per_stage.tolist()
-        hist = d.tc_history.cpu().numpy()
+        hist = host_numpy(d.tc_history)
         step = max(1, int(self.update_iter))
         for s, eps in enumerate(d.eps_schedule.tolist()):
             k = int(iters[s])
@@ -1526,7 +1551,7 @@ class Corex:
         d = self.diagnostics
         iters = d.iters_per_stage.cpu().numpy()
         out = {"iters_per_stage": iters, "TC": [], "eps": []}
-        hist = d.tc_history.cpu().numpy()
+        hist = host_numpy(d.tc_history)
         for s, eps in enumerate(d.eps_schedule.tolist()):
             k = int(iters[s])
             if hist.shape[1]:
@@ -1613,7 +1638,7 @@ class Corex:
         import pandas as pd
         index = x_orig.index if hasattr(x_orig, "index") \
             and hasattr(x_orig, "columns") else None
-        return pd.DataFrame(z.cpu().numpy(),
+        return pd.DataFrame(host_numpy(z),
                             columns=self.get_feature_names_out(),
                             index=index)
 

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from linearcorex_tpu_torch.config import CorexConfig
+from linearcorex_tpu_torch.core.solver import host_numpy
 from linearcorex_tpu_torch.models.corex import (_factor_z_ns,
                                                 _factor_z_overlap,
                                                 _gaussian_ll,
@@ -157,7 +158,7 @@ def _score_lanes(xv, mom_b, overlap: bool) -> np.ndarray:
             else:
                 z = _factor_z_ns(mom_b.rhoinvrho[lane], mom_b.si[lane])
             out.append(_gaussian_ll(xv, z, one))
-    return torch.stack(out).cpu().numpy()
+    return host_numpy(torch.stack(out))
 
 
 def _heldout_split_sizes(n: int, val_fraction: float,
@@ -277,7 +278,7 @@ def _sweep(data, repeat, max_n_hidden, verbose, tc_gain_tol, dtype, seed,
     def lane_scores(mom_b):
         if criterion == "heldout":
             return _score_lanes(xv, mom_b, overlap)
-        return mom_b.tc.cpu().numpy()
+        return host_numpy(mom_b.tc)
 
     if padded_sweep:
         w0 = _padded_inits(max_n_hidden, repeat, p, seed, dt, dev)

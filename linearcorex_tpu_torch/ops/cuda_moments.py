@@ -112,7 +112,10 @@ def ns_chain(c_xy: torch.Tensor, ry: torch.Tensor, sqz: torch.Tensor,
     """The whole non-overlap moment chain + gradient algebra, fused.
 
     Inputs: c_xy (p, m) annealed cross-moment; ry (m, m); sqz (m,) =
-    sqrt(z2); all float32 and contiguous. Returns (aa (p, m), hmat (m, m),
+    sqrt(z2); float32 and contiguous, or bfloat16 / float16, which are
+    cast to float32 here (the kernel computes in float32, and the outputs
+    are float32 whatever the input dtype, as the JAX package's Pallas
+    wrapper casts its operands). Returns (aa (p, m), hmat (m, m),
     kappa (m,), mu (m,), mi_sums (m,), sum_log_vi ()), as the JAX
     package's `ns_chain` does. With a leading lane axis on every operand
     ((k, p, m), (k, m, m), (k, m)) every output gains it, and the k lanes
@@ -135,6 +138,9 @@ def ns_chain(c_xy: torch.Tensor, ry: torch.Tensor, sqz: torch.Tensor,
             f"the fused chain kernel supports 1 <= m <= {MAX_M} and p >= 1; "
             f"got p={p}, m={m} — set use_pallas='never' (or 'auto') for "
             f"the plain chain")
+    if c_xy.dtype in (torch.bfloat16, torch.float16):
+        c_xy, ry, sqz = (t.to(torch.float32).contiguous()
+                         for t in (c_xy, ry, sqz))
     if c_xy.device.type == "cpu":
         return ns_chain_reference(c_xy, ry, sqz, rho_clip)
     if c_xy.device.type != "cuda":

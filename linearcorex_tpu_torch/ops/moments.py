@@ -8,6 +8,15 @@ Port of `linearcorex_tpu/ops/moments.py`:
 - Matmuls keep the JAX package's accumulation rule (`_mm`): at least
   float32, and float64 stays float64. Float32 matmuls run at full float32,
   never TF32 (`full_f32_matmul`).
+- The half-precision compute dtypes (`dtype='bfloat16'` or 'float16')
+  run every function here in that dtype, as the JAX package's XLA chain
+  does: a product accumulates in float32 and is rounded once, and the
+  sample count a sum is divided by is rounded to the dtype first
+  (`_per_sample`), as JAX's weak typing rounds it. torch has no
+  half-precision LU, Cholesky or QR, and neither has the JAX package's
+  LAPACK: the fixed point, the overlap objective, `score` and the
+  spectral init raise NotImplementedError there (`check_factorizable`),
+  as the JAX package does; nothing is upcast to make them run.
 - Operand modes: `matmul_dtype='bfloat16'` runs the big GEMMs on bf16
   operands with a float32 product (`_mm_bf16`); `matmul_dtype='int8'`
   carries the operand as `QuantizedData` and runs int8 x int8 → int32
@@ -98,6 +107,7 @@ from linearcorex_tpu_torch.parallel.collectives import (all_gather_dim,
                                                         shard_index)
 
 _F32 = torch.float32
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
 @contextlib.contextmanager
@@ -115,9 +125,37 @@ def full_f32_matmul():
 def _mm(a, b):
     """Matmul in the promoted operand dtype. Float32 and float64 operands
     accumulate in their own precision, which is the JAX package's rule
-    (>= float32 accumulation, float64 kept as float64)."""
+    (>= float32 accumulation, float64 kept as float64); half operands
+    accumulate in float32 and the product is rounded to their dtype once
+    (the JAX package's `preferred_element_type=float32`, then the cast)."""
     dt = torch.promote_types(a.dtype, b.dtype)
+    if dt in HALF_DTYPES:
+        return torch.matmul(a.to(_F32), b.to(_F32)).to(dt)
     return torch.matmul(a.to(dt), b.to(dt))
+
+
+def _per_sample(t, n):
+    """A sum over `n` samples divided by n. In a half dtype n is rounded
+    to that dtype first, as the JAX package's weak typing rounds it (n =
+    10,000 is 9984 in bfloat16), where torch would divide by it in
+    float32; in float32 and float64 torch already rounds it so."""
+    if t.dtype in HALF_DTYPES:
+        return t / torch.tensor(n, dtype=t.dtype, device=t.device)
+    return t / n
+
+
+def check_factorizable(dtype, op: str) -> None:
+    """Raise NotImplementedError, naming `op` and the dtype, where `op` (an
+    LU, Cholesky or QR factorization) would run in a half dtype: torch has
+    no half-precision kernel for it, nor has the LAPACK the JAX package
+    lowers to, which raises the same type there."""
+    if dtype in HALF_DTYPES:
+        raise NotImplementedError(
+            f"{op} is not implemented for dtype "
+            f"{str(dtype).removeprefix('torch.')}: the fixed point, the "
+            f"overlap objective, score() and init='spectral' need it. Fit "
+            f"with optimizer='momentum' (the default) and "
+            f"discourage_overlap=True, or in dtype='float32'")
 
 
 @functools.cache
@@ -610,8 +648,8 @@ def cxy_samples(x, ws, eps):
     vs = Split(var=var_of(x)).vsum
     x, n, axes = _unsharded(x)
     x = _dequantized(x)
-    c_xy = _lanes(lambda v: all_reduce(_mm(x.T, vs(_mm(x, v))), axes) / n,
-                  ws.mT)                                         # p x m
+    c_xy = _lanes(lambda v: _per_sample(
+        all_reduce(_mm(x.T, vs(_mm(x, v))), axes), n), ws.mT)   # p x m
     return _anneal(c_xy, ws.mT, eps)
 
 
@@ -634,12 +672,17 @@ def compute_gram(x):
     at a time around a ring over `var` (`ring_pass`), each multiplied into
     its columns of the block. Peak bytes per rank: its X block (n_loc ·
     p_loc), two blocks in flight (2 · n_loc · p_loc), the (p_loc, p) row
-    block and one (p_loc, p_loc) product, times the element size."""
+    block and one (p_loc, p_loc) product, times the element size.
+
+    In a half dtype XᵀX is accumulated in float32 and rounded to the dtype
+    before the division by n, as the JAX package does. Standardized columns
+    put n on its diagonal, so a float16 Σ stays finite only for n up to
+    65504, float16's largest value (bfloat16 has float32's range)."""
     var = var_of(x)
     xl, n, axes = _unsharded(x)
     with full_f32_matmul():
         if var is None:
-            return all_reduce(_mm(xl.T, xl), axes) / n
+            return _per_sample(all_reduce(_mm(xl.T, xl), axes), n)
         width = xl.shape[1]
         rows = xl.new_empty((width, width * var.size))
         blk = xl
@@ -649,7 +692,8 @@ def compute_gram(x):
             if step + 1 < var.size:
                 blk = ring_pass(blk, var)
         p = width * var.size
-        return ShardedSamples(local=all_reduce(rows, axes) / n, n_total=p,
+        return ShardedSamples(local=_per_sample(all_reduce(rows, axes), n),
+                              n_total=p,
                               axes=(), p_total=p, var=var, gram=True)
 
 
@@ -796,9 +840,10 @@ def _apply_sigma_t(data, bf16, gram, dtype):
         return apply
     vs = Split(var=var).vsum
     if bf16:
-        return lambda v: all_reduce(
-            _mm_bf16(x.T, vs(_mm_bf16(x, v, dtype)), dtype), axes) / n
-    return lambda v: all_reduce(_mm(x.T, vs(_mm(x, v))), axes) / n
+        return lambda v: _per_sample(all_reduce(
+            _mm_bf16(x.T, vs(_mm_bf16(x, v, dtype)), dtype), axes), n)
+    return lambda v: _per_sample(all_reduce(_mm(x.T, vs(_mm(x, v))), axes),
+                                 n)
 
 
 def _run_chain(ws, c_xy, y_scale, rho_clip, sp=NO_SPLIT):
@@ -894,9 +939,10 @@ def _apply_sigma_rows(data, bf16, gram, dtype):
         return apply
     vs = Split(var=var).vsum
     if bf16:
-        return lambda a: all_reduce(
-            _mm_bf16(vs(_mm_bf16(a, x.T, dtype)), x, dtype), axes) / n
-    return lambda a: all_reduce(_mm(vs(_mm(a, x.T)), x), axes) / n
+        return lambda a: _per_sample(all_reduce(
+            _mm_bf16(vs(_mm_bf16(a, x.T, dtype)), x, dtype), axes), n)
+    return lambda a: _per_sample(all_reduce(_mm(vs(_mm(a, x.T)), x), axes),
+                                 n)
 
 
 # ---------------------------------------------------------------------------
@@ -962,6 +1008,7 @@ def ns_fp_gram(ws, gram, eps, y_scale, rho_clip, bf16=False,
 
 def _ns_fp(ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram,
            model=None):
+    check_factorizable(ws.dtype, "the fixed point's LU inverse")
     obj, tc, a_mat, aa_t, sqz = ns_fp_parts(
         ws, data, eps, y_scale, rho_clip, bf16, chain_kernel, gram, model)
     # inv_ex, as jnp.linalg.inv: a singular a_mat gives inf/NaN (a rejected
@@ -980,7 +1027,9 @@ def _cholesky_or_nan(cy):
     definite — what `jnp.linalg.cholesky` returns. The objective is then
     NaN, `f_new <= f` is False and the solver rejects the step, as in the
     JAX package. `cholesky_ex` reports the failure in `info` on the
-    device, so this costs no host sync."""
+    device, so this costs no host sync. A half-dtype C_y raises
+    NotImplementedError (`check_factorizable`)."""
+    check_factorizable(cy.dtype, "Cholesky")
     chol, info = torch.linalg.cholesky_ex(cy)
     return torch.where(info[..., None, None] == 0, chol, torch.nan)
 

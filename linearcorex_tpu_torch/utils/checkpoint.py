@@ -27,7 +27,7 @@ import torch
 import torch.distributed as dist
 
 from linearcorex_tpu_torch.config import CorexConfig, PreprocessConfig
-from linearcorex_tpu_torch.core.solver import FitDiagnostics
+from linearcorex_tpu_torch.core.solver import FitDiagnostics, host_numpy
 from linearcorex_tpu_torch.models.corex import (Corex, _fit_program,
                                                 _subsample_rows,
                                                 check_precision,
@@ -108,8 +108,31 @@ def _fit_fingerprint(model: Corex, x, schedule) -> str:
     return h.hexdigest()
 
 
-def _host(t) -> np.ndarray:
-    return t.detach().cpu().numpy()
+def _savez(path: str, **arrays) -> None:
+    """`np.savez(path, **arrays)` for numpy arrays and tensors. A bfloat16
+    tensor is written as the JAX package's np.savez writes its
+    `ml_dtypes.bfloat16` arrays: the 2-byte words under the header descr
+    '<V2', since the .npy format cannot name bfloat16. `np.load` reads it
+    back as void, and both packages' `load_corex` refuse it
+    (`models.corex.numpy_to_torch`). Other tensors are saved as their
+    numpy arrays, so every other file is np.savez's, byte for byte."""
+    import zipfile
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, val in arrays.items():
+            with zf.open(key + ".npy", "w", force_zip64=True) as fid:
+                if isinstance(val, torch.Tensor) \
+                        and val.dtype == torch.bfloat16:
+                    bits = val.detach().cpu().contiguous().view(torch.int16)
+                    np.lib.format.write_array_header_1_0(fid, {
+                        "descr": "<V2", "fortran_order": False,
+                        "shape": tuple(bits.shape)})
+                    fid.write(bits.numpy().tobytes())
+                    continue
+                if isinstance(val, torch.Tensor):
+                    val = val.detach().cpu().numpy()
+                np.lib.format.write_array(fid, np.asanyarray(val),
+                                          allow_pickle=False)
 
 
 def save_corex(model: Corex, path: str) -> None:
@@ -134,16 +157,16 @@ def save_corex(model: Corex, path: str) -> None:
         "best_restart": model.best_restart_,
     }
     arrays = {
-        "ws": _host(model.ws),
-        "theta_mean": _host(model.theta.mean),
-        "theta_std": _host(model.theta.std),
+        "ws": model.ws,
+        "theta_mean": model.theta.mean,
+        "theta_std": model.theta.std,
         "meta_json": np.frombuffer(
             json.dumps(meta, default=_json_scalar).encode(),
             dtype=np.uint8),
     }
     for name, val in model.moments._asdict().items():
-        arrays[f"mom_{name}"] = _host(val)
-    np.savez(path, **arrays)
+        arrays[f"mom_{name}"] = val
+    _savez(path, **arrays)
 
 
 def fit_with_checkpoints(model: Corex, x, ckpt_dir: str, init_ws=None,
@@ -284,12 +307,11 @@ def _fit_staged(model, x, ckpt_dir, init_ws, mesh, plan, stage_callback):
             [diag.tc_per_stage[0], diag.delta_per_stage[0],
              diag.objective_per_stage[0]]).tolist()
         if cfg.record_history:
-            stats["hist"][s] = _host(diag.tc_history[0])
+            stats["hist"][s] = host_numpy(diag.tc_history[0])
         if writer:
             # a whole file or none: a preempted write leaves the last one
             tmp = os.path.join(ckpt_dir, "stage_state.tmp.npz")
-            np.savez(tmp, ws=_host(ws), stage=s + 1, fingerprint=fp_arr,
-                     **stats)
+            _savez(tmp, ws=ws, stage=s + 1, fingerprint=fp_arr, **stats)
             os.replace(tmp, state_path)
         if mesh is not None:
             S.mesh_barrier(mesh, ws.device)

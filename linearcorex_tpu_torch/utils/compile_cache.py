@@ -167,13 +167,14 @@ def warmup_fit(model, n_samples: int, n_variables: int, mesh=None,
     The model stays as it was (unfitted if it was), and no random stream
     of the caller moves. There is no fallback: without nvcc on a card the
     warmup raises as the fit would."""
+    from linearcorex_tpu_torch.core.solver import host_numpy
     ensure_compile_cache()
     shadow = _shadow(model, max_iter=1, verbose=False)
     dev = shadow._device
     x = torch.randn((int(n_samples), int(n_variables)),
                     generator=synthetic_generator(dev), dtype=shadow._dt,
                     device=dev)
-    shadow._fit(x.numpy() if dev.type == "cpu" else x, None, mesh,
+    shadow._fit(host_numpy(x) if dev.type == "cpu" else x, None, mesh,
                 sharding_plan, check_overflow=False)
     synchronize(dev)
 

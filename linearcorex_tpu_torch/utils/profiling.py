@@ -26,6 +26,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from linearcorex_tpu_torch.core.solver import host_numpy
+
 __all__ = ["trace", "fit_report", "iteration_rate"]
 
 
@@ -56,7 +58,7 @@ def trace(logdir: str):
 
 
 def _to_numpy(a) -> np.ndarray:
-    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) \
+    return host_numpy(a.detach()) if isinstance(a, torch.Tensor) \
         else np.asarray(a)
 
 

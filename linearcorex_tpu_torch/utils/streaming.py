@@ -303,10 +303,18 @@ def _update_moments(g, s, x, x0, var=None):
     its columns, and g its row block G[I, :]: the other ranks' column
     blocks come around a ring over `var` (`ring_pass`), one at a time,
     each multiplied into its columns of g, as `ops.moments.compute_gram`
-    builds Σ's row block. In a world of one that is the one `addmm_`."""
+    builds Σ's row block. In a world of one that is the one `addmm_`.
+
+    In a half dtype the batch's product is rounded to the dtype and then
+    added, as the JAX package does (`ops.moments._mm`, then the sum), and
+    in float16 every entry of g, the sum of (x − x0)² over all rows so
+    far on the diagonal, must stay below 65504 (float16's largest value)
+    or it overflows to inf, as it does there."""
     xs = x - x0[None, :]
     with M.full_f32_matmul():
-        if var is None or var.size == 1:
+        if g.dtype in M.HALF_DTYPES and (var is None or var.size == 1):
+            g.add_(M._mm(xs.T, xs))
+        elif var is None or var.size == 1:
             g.addmm_(xs.T, xs)
         else:
             width, blk = xs.shape[1], xs
@@ -325,9 +333,9 @@ def _finalize_corr(g_raw, col_sum, n, var=None):
     correlation's row block, and the mean and std are gathered whole (the
     std of I is local, from the block's diagonal)."""
     sp = M.Split(var=var)
-    mean = col_sum / n
+    mean = M._per_sample(col_sum, n)
     mean_all = sp.all_vars(mean)
-    cov = g_raw / n - torch.outer(mean, mean_all)
+    cov = M._per_sample(g_raw, n) - torch.outer(mean, mean_all)
     first = 0 if var is None else var.index * g_raw.shape[0]
     var_i = torch.clamp(torch.diagonal(cov, offset=first), min=1e-20)
     std = torch.sqrt(var_i)

@@ -116,6 +116,55 @@ def test_fit_on_card_goes_through_kernel_and_agrees():
     assert abs(gpu.tc - cpu.tc) / abs(cpu.tc) < 1e-3
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes", [(), (3,)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_kernel_takes_half_operands(dtype, lanes):
+    """bfloat16 and float16 operands are cast to float32 at the wrapper:
+    the outputs are float32 and bitwise the kernel's on the casts, one
+    lane and lanes, each call one launch."""
+    _need_cuda()
+    args = _lane_inputs(lanes[0], 999, 7, "cuda", 0) if lanes \
+        else _inputs(999, 7, "cuda")
+    half = tuple(a.to(dtype) for a in args)
+    count = "lane_launches" if lanes else "launches"
+    before = getattr(CM.ns_chain, count)
+    got = CM.ns_chain(*half, RHO_CLIP)
+    want = CM.ns_chain(*(a.float() for a in half), RHO_CLIP)
+    torch.cuda.synchronize()
+    assert getattr(CM.ns_chain, count) == before + 2
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        assert torch.equal(g, w)
+
+
+def _partition(clusters):
+    c = np.asarray(clusters)
+    return sorted(tuple(np.flatnonzero(c == k)) for k in np.unique(c))
+
+
+@pytest.mark.cuda
+def test_bfloat16_fit_on_card_agrees_with_cpu():
+    """A small dtype='bfloat16' momentum fit on the card runs the kernel
+    on float32 casts and gives the clusters of the port's bfloat16 fit on
+    the CPU (the same partition: factors whose TCs tie in bfloat16 may be
+    sorted in another order), from the same W0."""
+    _need_cuda()
+    rng = np.random.RandomState(3)
+    x = np.repeat(rng.normal(size=(2000, 8)), 32, axis=1) * 0.9 \
+        + 0.436 * rng.normal(size=(2000, 256))
+    w0 = rng.normal(scale=1 / 16, size=(8, 256))
+    kw = dict(n_hidden=8, dtype="bfloat16", max_iter=2000)
+    before = CM.ns_chain.launches
+    gpu = lct.Corex(device="cuda", **kw).fit(x, init_ws=w0)
+    assert CM.ns_chain.launches > before
+    assert gpu.ws.dtype == torch.bfloat16
+    assert gpu.resolved_optimizer_ == "momentum"
+    cpu = lct.Corex(device="cpu", **kw).fit(x, init_ws=w0)
+    assert _partition(gpu.clusters.cpu()) == _partition(cpu.clusters)
+    assert np.isfinite(gpu.tc) and bool(torch.isfinite(gpu.ws).all())
+
+
 def _standardized(n, p, seed=0):
     x = np.random.RandomState(seed).normal(size=(n, p))
     x[:, 1:] += x[:, :1]                    # some correlation

@@ -80,7 +80,7 @@ def test_streaming_validation():
     with pytest.raises(ValueError, match="expected batch"):
         acc.update(np.zeros(8))
     with pytest.raises(ValueError, match="dtype"):
-        GramAccumulator(8, dtype="float16", device="cpu")
+        GramAccumulator(8, dtype="int32", device="cpu")
 
 
 def test_streaming_large_means_f32_accuracy():

@@ -68,6 +68,19 @@ non-zero and does not print the final line.
              last covariance_blocks(4096) blocks equal to those rows of
              get_covariance(); score(x) finite and above the score of x
              with its columns shuffled.
+   host_outputs  outputs follow the kind of their input, on the same
+             model: a NumPy copy of x in gives float32 ndarrays out,
+             transform (n, m) and predict (n, p) bitwise host_numpy of the
+             tensor calls, which give CUDA tensors; two north-star fits on
+             the NumPy copy (through the kernel) give tcs/mis/clusters as
+             ndarrays bitwise the tensor fit's host copies, np.asarray
+             reads every public output and np.linalg.norm(recon - x)
+             runs, and the two fits pass a hand-rolled
+             check_fit_idempotent (np.issubdtype on every output dtype).
+             Reported: transform of the 10,000 rows NumPy in and out
+             against tensor in and out, and the host-side NaN/inf scan,
+             the host-to-device copy, the product and the device-to-host
+             copy apart (CUDA events, min of 3, in turns).
    sharded   a world of one rank on the card (torch.distributed, NCCL
              by default, a file rendezvous, no network; the backend is
              printed): Corex(n_hidden=512, optimizer='auto', seed=0).fit(x,
@@ -618,6 +631,7 @@ def sharded_phase(x, card, sweep_ref=None, backend="nccl"):
     for bit against its plain form (`sweep_ref`: the plain float32 sweep,
     fitted here when not given). Returns ({path: launches}, {path: lane
     launches}) of the mesh runs."""
+    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -728,11 +742,11 @@ def sharded_phase(x, card, sweep_ref=None, backend="nccl"):
                     score = model.score(x, mesh=mesh)
                     check(torch.equal(y, plain.transform(x)),
                           "transform(mesh=) differs from the plain call")
-                    check(torch.equal(score, plain.score(x)),
+                    check(score == plain.score(x),
                           "score(mesh=) differs from the plain call")
                     check(tuple(y.shape) == (N, M)
                           and bool(torch.isfinite(y).all())
-                          and bool(torch.isfinite(score)),
+                          and np.isfinite(score),
                           "mesh serving is not finite")
                     emit("sharded_serving", transform_bitwise=True,
                          score_bitwise=True, score=float(score),
@@ -946,7 +960,7 @@ def sharded_vars_phase(x, card, backend="nccl"):
                   "var-plan transform differs from the plain call")
             check(torch.equal(xr.full_tensor(), plain_f32.predict(y)),
                   "var-plan predict differs from the plain call")
-            check(torch.equal(score, plain_f32.score(x)),
+            check(score == plain_f32.score(x),
                   "var-plan score differs from the plain call")
             ref_blocks = list(plain_f32.covariance_blocks(4096))
             check([s for s, _ in blocks] == [s for s, _ in ref_blocks]
@@ -1307,6 +1321,113 @@ def serving(model, x, card):
          blocks_bitwise=[bool(torch.equal(rows, dense[s:s + rows.shape[0]]))
                          for s, rows in (blocks[0], blocks[-1])],
          score=score, score_shuffled=shuffled, card=card)
+
+
+def host_outputs_phase(model, x, card):
+    """Phase host_outputs: outputs follow the kind of their input, at the
+    north-star width. `model` is the float32 north-star fit on the CUDA
+    `x`; `xh` is a NumPy copy of x (the same float32 values). Gates:
+    transform and predict of NumPy input give float32 ndarrays of (n, m)
+    and (n, p), bitwise `host_numpy` of the tensor calls, which give CUDA
+    tensors; the north-star fit on xh (through the chain kernel: the path
+    'host_outputs') gives tcs, mis and clusters as ndarrays bitwise the
+    host copies of `model`'s tensors; np.asarray reads every public
+    output of it and np.linalg.norm(recon - xh) runs; a second fit on xh
+    passes a hand-rolled check_fit_idempotent (sklearn's: np.issubdtype
+    on every output's dtype, the two fits' outputs within 2 eps of it).
+    Timing: transform of the n rows NumPy in and out against tensor in
+    and out, and its parts: the host-side checks of xh (`_check_width`:
+    the NaN/inf scan and the width), the host-to-device copy of xh (the
+    operand's own `_as_tensor`), the tensor call, the device-to-host copy
+    of its result (`host_numpy`); CUDA events around each call (the NumPy
+    call returns only after its copy back; host-only work spans the
+    idle stream's events), min of 3, in turns. Returns {path:
+    launches}."""
+    import numpy as np
+    import torch
+    from linearcorex_tpu_torch.core.solver import host_numpy
+
+    t_phase = time.perf_counter()
+    xh = x.cpu().numpy()
+    check(xh.dtype == np.float32 and xh.shape == (N, P),
+          "the NumPy copy of x is not float32 (n, p)")
+    y_t, y_h = model.transform(x), model.transform(xh)
+    r_t, r_h = model.predict(y_t), model.predict(y_h)
+    for name, t, h, shape in (("transform", y_t, y_h, (N, M)),
+                              ("predict", r_t, r_h, (N, P))):
+        check(isinstance(t, torch.Tensor) and t.is_cuda,
+              f"{name} of a CUDA tensor is not a CUDA tensor")
+        check(type(h) is np.ndarray and h.dtype == np.float32
+              and h.shape == shape,
+              f"{name} of NumPy input gave {type(h).__name__} "
+              f"{getattr(h, 'dtype', None)} {getattr(h, 'shape', None)}")
+        check(np.array_equal(h, host_numpy(t)),
+              f"{name} of NumPy input is not the tensor call's bits")
+    rel_recon = float(np.linalg.norm(r_h - xh) / np.linalg.norm(xh))
+    check(np.isfinite(rel_recon), "np.linalg.norm(recon - x) is not finite")
+    del r_t, r_h
+
+    launches, fits = {}, []
+    for path in ("host_outputs", "host_outputs_refit"):
+        fitted, launches[path], secs, _ = north_star_fit(xh,
+                                                         optimizer="auto")
+        check(launches[path] > 0, f"{path}: the chain kernel never ran")
+        fits.append((fitted, secs))
+    fitted = fits[0][0]
+    for name in ("tcs", "mis", "clusters"):
+        h, t = getattr(fitted, name), getattr(model, name)
+        check(isinstance(t, torch.Tensor) and t.is_cuda,
+              f"{name} of the tensor fit is not a CUDA tensor")
+        check(type(h) is np.ndarray and np.array_equal(h, host_numpy(t)),
+              f"{name} of the NumPy fit is not the tensor fit's bits")
+    outs = dict(
+        tcs=fitted.tcs, mis=fitted.mis, clusters=fitted.clusters,
+        transform=fitted.transform(xh[:4096]),
+        get_covariance=fitted.get_covariance(),
+        covariance_matvec=fitted.covariance_matvec(np.ones(P)),
+        covariance_blocks=next(fitted.covariance_blocks(4096))[1])
+    outs["predict"] = fitted.predict(outs["transform"])
+    for name, out in outs.items():
+        check(type(np.asarray(out)) is np.ndarray
+              and np.isfinite(np.asarray(out)).all(),
+              f"np.asarray({name}) of the NumPy fit failed")
+    # sklearn's check_fit_idempotent, by hand: the methods on held-out
+    # rows and the fitted attributes of two fits on the same data
+    x_test = xh[N // 2:]
+    idem = {}
+    for name, get in (("transform", lambda f: f.transform(x_test)),
+                      ("predict", lambda f: f.predict(f.transform(x_test))),
+                      ("tcs", lambda f: f.tcs), ("mis", lambda f: f.mis),
+                      ("clusters", lambda f: f.clusters)):
+        a, b = get(fits[0][0]), get(fits[1][0])
+        dt = b.dtype if np.issubdtype(b.dtype, np.floating) \
+            else np.float64
+        tol = 2 * np.finfo(dt).eps
+        np.testing.assert_allclose(a, b, atol=max(tol, 1e-9),
+                                   rtol=max(tol, 1e-7))
+        idem[name] = str(b.dtype)
+    fit_s = [s for _, s in fits]
+    del outs, fits, fitted
+
+    parts = {"numpy": lambda: model.transform(xh),
+             "tensor": lambda: model.transform(x),
+             "validate": lambda: model._check_width(xh, move=False),
+             "h2d": lambda: model._as_tensor(xh),
+             "d2h": lambda: host_numpy(y_t)}
+    ms = {k: float("inf") for k in parts}
+    for turn in (*parts, *reversed(parts)):
+        ms[turn] = min(ms[turn], time_ms(parts[turn]))
+    emit("host_outputs", n=N, p=P, m=M, transform_bitwise=True,
+         predict_bitwise=True, fit_attributes_bitwise=True,
+         tensor_in_tensor_out=True, recon_rel_err=rel_recon,
+         fit_idempotent_dtypes=idem,
+         fit_seconds=fit_s,
+         transform_numpy_ms=ms["numpy"], transform_tensor_ms=ms["tensor"],
+         host_validate_ms=ms["validate"], h2d_ms=ms["h2d"],
+         d2h_ms=ms["d2h"],
+         h2d_bytes=xh.nbytes, d2h_bytes=y_h.nbytes,
+         phase_seconds=time.perf_counter() - t_phase, card=card)
+    return launches
 
 
 def check_north_star(name, model, launches, x, tc_f32,
@@ -2042,8 +2163,7 @@ def small_streaming(card):
               f"small '{name}' never launched the chain kernel")
         for layer, (g, c) in enumerate(zip(gpu, cpu)):
             rel_tc = abs(g.tc - c.tc) / abs(c.tc)
-            same = bool(np.array_equal(g.clusters.cpu().numpy(),
-                                       c.clusters.numpy()))
+            same = bool(np.array_equal(g.clusters, c.clusters))
             emit("small_streaming", path=name, layer=layer, tc_card=g.tc,
                  tc_cpu_f64=c.tc, tc_rel_diff=rel_tc, clusters_equal=same,
                  n_iter_card=g.n_iter_, n_iter_cpu=c.n_iter_,
@@ -2120,8 +2240,7 @@ def small_fits(card):
             k: v for k, v in kw.items() if k != "use_pallas"}).fit(
             xs, init_ws=ws0)
         rel_tc = abs(gpu.tc - cpu.tc) / abs(cpu.tc)
-        same = bool(np.array_equal(gpu.clusters.cpu().numpy(),
-                                   cpu.clusters.numpy()))
+        same = bool(np.array_equal(gpu.clusters, cpu.clusters))
         fields = dict(tc_card=gpu.tc, tc_cpu_f64=cpu.tc, tc_rel_diff=rel_tc,
                       clusters_equal=same, n_iter_card=gpu.n_iter_,
                       n_iter_cpu=cpu.n_iter_)
@@ -2160,8 +2279,7 @@ def small_restarts(card):
             kw, n_restarts=1, seed=gpu.best_restart_)).fit(xs)
         rel_tc = abs(gpu.tc - cpu.tc) / abs(cpu.tc)
         lane_rel = abs(lane.tc - cpu.tc) / abs(cpu.tc)
-        same = bool(np.array_equal(gpu.clusters.cpu().numpy(),
-                                   cpu.clusters.numpy()))
+        same = bool(np.array_equal(gpu.clusters, cpu.clusters))
         emit("small_restarts", path=name, best_restart_card=gpu.best_restart_,
              best_restart_cpu=cpu.best_restart_, tc_card=gpu.tc,
              tc_cpu_f64=cpu.tc, tc_rel_diff=rel_tc, clusters_equal=same,
@@ -2282,7 +2400,7 @@ def warmup_child(spec):
         for _ in range(2):
             y, rec_t = timed(lambda: model.transform(x))
             s, rec_s = timed(lambda: model.score(x))
-            check(bool(torch.isfinite(y).all()) and bool(torch.isfinite(s)),
+            check(bool(torch.isfinite(y).all()) and np.isfinite(s),
                   "serving after warmup_serving is not finite")
             ys.append(y)
             out["calls"].append(dict(transform=rec_t, score=rec_s))
@@ -2714,6 +2832,7 @@ def main():
 
     lane_launches, sweep_ref = restart_sweeps(x, card)
     serving(model_f32, x, card)
+    launches.update(host_outputs_phase(model_f32, x, card))
     del model_f32
 
     # the mesh forms, in a world of one rank on this card

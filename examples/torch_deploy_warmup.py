@@ -58,7 +58,7 @@ def main():
     timed("warmup", lambda: model.warmup(args.n, args.p), dev)
     timed("first fit", lambda: model.fit(x), dev)
     print(f"tc = {model.tc:.4f}, clusters = "
-          f"{model.clusters.cpu().numpy().tolist()}")
+          f"{model.clusters.tolist()}")
     lct.save_corex(model, args.out)
 
     # the serving process: load, warm for the batch size, serve
@@ -68,7 +68,7 @@ def main():
     y = timed("first transform", lambda: served.transform(batch), dev)
     timed("first score", lambda: served.score(batch), dev)
     print(f"transform {tuple(y.shape)}, equal to the fitted model's: "
-          f"{bool(torch.equal(y, model.transform(batch)))}")
+          f"{bool(np.array_equal(y, model.transform(batch)))}")
 
 
 if __name__ == "__main__":

@@ -50,6 +50,10 @@ Differences by design:
   (which cuBLAS serves as TF32 too).
   On the CPU every value runs full float32, as XLA:CPU does. The JAX
   package's dot-algorithm names have no counterpart and raise ValueError.
+- Outputs follow the kind of their input (`as_kind`): a tensor in gives
+  tensors on the model device, anything else numpy arrays, and the fitted
+  attributes follow the fit's input. The JAX package returns `jax.Array`s,
+  which `np.asarray` reads from any device; a CUDA tensor refuses it.
 - `warmup` (`utils.compile_cache.warmup_fit`) runs the fit's programs once
   on synthetic operands, where the JAX package lowers and compiles them
   without data: it builds and loads what the fit uses, so the first fit of
@@ -677,6 +681,44 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+# ---------------------------------------------------------------------------
+# The output rule: outputs follow the kind of their input (sklearn's
+# array-API rule, and the upstream LinearCorex's NumPy in, NumPy out). A
+# torch.Tensor in gives tensors on the model device out; anything else
+# (NumPy arrays, lists, DataFrames, memmaps: what `_coerce_2d` turns into an
+# array) gives numpy.ndarrays, read back once at the end of the call. The
+# fitted attributes follow the input of the fit (`Corex._fit_kind`). Every
+# public method goes through `as_kind`; internal callers take the private
+# tensor paths (`_transform`, `_predict`) and never read back.
+# ---------------------------------------------------------------------------
+
+def input_kind(x) -> str:
+    """'tensor' for a torch.Tensor, 'numpy' for anything else."""
+    return "tensor" if isinstance(x, torch.Tensor) else "numpy"
+
+
+def as_kind(out, kind: str):
+    """`out` (a tensor, or a tuple, list or dict of them) as `kind`. For
+    'numpy' each tensor is read back through `host_numpy` (bfloat16 as
+    float32, exactly), as a copy where the tensor already lies on the host,
+    so that no array shares storage with the model's state. A `DTensor` (a
+    p-sized output under a `shard_vars` plan) stays one: gathering it would
+    build the buffer the plan exists to avoid. Other values pass."""
+    if kind == "tensor":
+        return out
+    if isinstance(out, (tuple, list)):
+        return type(out)(as_kind(o, kind) for o in out)
+    if isinstance(out, dict):
+        return {k: as_kind(v, kind) for k, v in out.items()}
+    dtensor = sys.modules.get("torch.distributed.tensor")
+    if not isinstance(out, torch.Tensor) or (
+            dtensor is not None and isinstance(out, dtensor.DTensor)):
+        return out
+    a = host_numpy(out)
+    return a.copy() if out.device.type == "cpu" \
+        and out.dtype != torch.bfloat16 else a
+
+
 class Corex:
     """Linear CorEx estimator (the JAX package's surface, in PyTorch)."""
 
@@ -745,6 +787,11 @@ class Corex:
     _serving_plan = None
     # the seed of an UNSEEDED mesh fit, shared by its ranks while it runs
     _mesh_seed = None
+    # the kind of the input of the last fit: the fitted attributes' kind
+    # (`as_kind`). A model built from a file or from NumPy arrays is 'numpy'.
+    _fit_kind = "numpy"
+    # set_output(transform='pandas') sets 'pandas'
+    _output_transform = None
 
     ws = property(lambda self: self._ws,
                   lambda self, v: setattr(self, "_ws", v),
@@ -894,9 +941,11 @@ class Corex:
 
     def _as_tensor(self, a) -> torch.Tensor:
         """`a` (tensor or array-like) in the model dtype on the model
-        device."""
+        device. A host array is taken in C order (a DataFrame's values
+        are often in Fortran order), so that its products add in the
+        order of a tensor's and the result is bitwise the tensor call's."""
         if not isinstance(a, torch.Tensor):
-            a = numpy_to_torch(np.asarray(a))
+            a = numpy_to_torch(np.asarray(a, order="C"))
         return torch.as_tensor(a, dtype=self._dt, device=self._device)
 
     def _host_preprocess(self, x):
@@ -928,7 +977,8 @@ class Corex:
 
     def _prepare_fit(self, x, resolve=True, plan=None, mesh=None,
                      check_overflow=True):
-        """Input validation, preprocessing (sets theta/nv/n_samples),
+        """Input validation, preprocessing (sets theta/nv/n_samples and
+        the kind of the fitted attributes, `_fit_kind`),
         moment-strategy choice and 'auto' resolution. Returns (data, cfg,
         strategy) with data the solver operand: X or the Gram matrix,
         cast to bf16 under matmul_dtype='bfloat16' or quantized (after
@@ -951,6 +1001,7 @@ class Corex:
         check_overflow=False leaves out the int8 wrap guard (a warmup's
         synthetic operand)."""
         self._partial_acc = None
+        self._fit_kind = input_kind(x)
         x = self._validate_input(x)
         self.n_samples, self.nv = x.shape
         if self.n_samples < 2:
@@ -1281,7 +1332,9 @@ class Corex:
     def transform(self, x, details=False, mesh=None, sharding_plan=None):
         """Project to factors: Y = X_preproc·Wᵀ. With details=True returns
         (Y, moments dict) with the moments of the given data under the
-        fitted weights (the reference's keys). Under
+        fitted weights (the reference's keys). Y and the moments are of
+        the kind of `x` (`as_kind`: a tensor in, tensors on the model
+        device out; else numpy arrays). Under
         set_output(transform='pandas') the plain return is a DataFrame.
 
         `mesh` (+ optional `sharding_plan`, default: the last mesh fit's,
@@ -1291,8 +1344,15 @@ class Corex:
         summed over `var`, the factor columns gathered over `model` and
         the rows over the sample axes, so the (n, m) result is whole on
         every rank."""
+        out = self._transform(x, details, mesh, sharding_plan)
+        if not details and self._output_transform == "pandas":
+            return self._as_frame(out, x)
+        return as_kind(out, input_kind(x))
+
+    def _transform(self, x, details=False, mesh=None, sharding_plan=None):
+        """`transform` in tensors on the model device, for internal
+        callers (the layers of `StackedCorex`)."""
         self._check_fitted()
-        x_orig = x
         x = self._check_width(x, move=False)
         n = x.shape[0]
         layout = self._serving_layout(mesh, sharding_plan, n)
@@ -1307,7 +1367,7 @@ class Corex:
             y = all_gather_rows(sp.all_factors(sp.vsum(M._mm(xp, ws.T))),
                                 axes)
             if not details:
-                return self._maybe_wrap_output(y, x_orig)
+                return y
             zero = torch.zeros((), dtype=self.ws.dtype, device=x.device)
             if axes or sp.var is not None:
                 xp = M.ShardedSamples(local=xp, n_total=n, axes=axes,
@@ -1333,7 +1393,13 @@ class Corex:
         (n, p) reconstruction is gathered onto every rank; under
         `shard_vars` each rank reconstructs its columns only and the
         result is a `DTensor` split over the sample axes (rows) and `var`
-        (columns), never gathered: `.full_tensor()` gathers it."""
+        (columns), never gathered: `.full_tensor()` gathers it. The
+        result is of the kind of `y` (`as_kind`)."""
+        return as_kind(self._predict(y, mesh, sharding_plan), input_kind(y))
+
+    def _predict(self, y, mesh=None, sharding_plan=None):
+        """`predict` in tensors on the model device, for internal callers
+        (the layers of `StackedCorex`)."""
         self._check_fitted()
         y = self._coerce_2d(y, what="y")
         # the FITTED factor count: set_params(n_hidden=...) after fit must
@@ -1374,7 +1440,8 @@ class Corex:
         `covariance_matvec`/`matmat`/`blocks`, which never materialize
         it. Raises by name on var-sharded state (the last mesh fit or
         serving call had `ShardingPlan(shard_vars=True)`): the dense p x p
-        is the buffer that plan exists to avoid."""
+        is the buffer that plan exists to avoid. Of the kind of the fit's
+        input, as the fitted attributes."""
         self._check_fitted()
         if self._serving_plan is not None and self._serving_plan.shard_vars:
             raise ValueError(
@@ -1388,8 +1455,10 @@ class Corex:
         mom = self.moments
         with M.full_f32_matmul():
             if self.config.discourage_overlap:
-                return _cov_ns(mom.rhoinvrho, mom.si, self.theta.std)
-            return _cov_overlap(mom.cy, mom.c_xy, self.theta.std)
+                cov = _cov_ns(mom.rhoinvrho, mom.si, self.theta.std)
+            else:
+                cov = _cov_overlap(mom.cy, mom.c_xy, self.theta.std)
+        return as_kind(cov, self._fit_kind)
 
     def score(self, x, y=None, mesh=None, sharding_plan=None):
         """Mean Gaussian log-likelihood of `x` under the fitted factor
@@ -1399,7 +1468,7 @@ class Corex:
         ('none', 'standard') carry a density back to the data's scale.
         Under `mesh` each rank scores its block (under `shard_vars` its
         columns, the sums over p reduced over `var`) and the mean is over
-        all rows."""
+        all rows. A Python float, whatever the input's kind."""
         del y
         self._check_fitted()
         pre = self.pre_config
@@ -1417,8 +1486,8 @@ class Corex:
         with M.full_f32_matmul():
             xp = P.preprocess(x, pre.gaussianize, theta, pre.missing_values,
                               axes)
-            return _gaussian_ll(xp, self._factor_z(cols), theta.std, axes,
-                                sp.var)
+            return float(_gaussian_ll(xp, self._factor_z(cols), theta.std,
+                                      axes, sp.var))
 
     def _covariance_apply(self, v, var=None):
         """Σ̂·V on this rank's rows of Σ̂ (all of them without `var`)."""
@@ -1444,10 +1513,10 @@ class Corex:
         """Σ̂·v through skinny products (the p x p never forms); equal to
         `get_covariance() @ v` to rounding on both solver paths. Under a
         var plan each rank computes its rows, returned as a `DTensor`
-        split over `var`."""
+        split over `var`. The result is of the kind of `v` (`as_kind`)."""
         self._check_fitted()
         layout = self._serving_layout(mesh, sharding_plan)
-        if not hasattr(v, "ndim"):
+        if not isinstance(v, torch.Tensor):
             v = np.asarray(v)
         if v.ndim != 1 or v.shape[0] != self.nv:
             raise ValueError(
@@ -1455,21 +1524,24 @@ class Corex:
                 f"n_variables); got shape {tuple(v.shape)} — use "
                 f"covariance_matmat for (p, k) blocks")
         out = self._covariance_apply(v[:, None], layout and layout[1].var)
-        return self._var_split_output(out[:, 0], mesh, layout)
+        return as_kind(self._var_split_output(out[:, 0], mesh, layout),
+                       input_kind(v))
 
     def covariance_matmat(self, v, mesh=None, sharding_plan=None):
         """Σ̂·V for a (p, k) block of vectors in one pass of skinny
-        products (a `DTensor` of this rank's rows under a var plan)."""
+        products (a `DTensor` of this rank's rows under a var plan). Of
+        the kind of `v`, as `covariance_matvec`."""
         self._check_fitted()
         layout = self._serving_layout(mesh, sharding_plan)
-        if not hasattr(v, "ndim"):
+        if not isinstance(v, torch.Tensor):
             v = np.asarray(v)
         if v.ndim != 2 or v.shape[0] != self.nv:
             raise ValueError(
                 f"v must be 2-D with {self.nv} rows (the fitted "
                 f"n_variables); got shape {tuple(v.shape)}")
         out = self._covariance_apply(v, layout and layout[1].var)
-        return self._var_split_output(out, mesh, layout)
+        return as_kind(self._var_split_output(out, mesh, layout),
+                       input_kind(v))
 
     def _factor_z(self, sp=M.NO_SPLIT):
         """The covariance factorization Z (m x p) of either solver path:
@@ -1489,7 +1561,8 @@ class Corex:
         one size (the last as the tail of a full block). Under a var plan
         each rank computes its columns of every block, yielded as a
         `DTensor` split over `var` (equal to the single-device block bit
-        for bit: the contraction over m is never split)."""
+        for bit: the contraction over m is never split). The rows are of
+        the kind of the fit's input, as the fitted attributes."""
         self._check_fitted()
         layout = self._serving_layout(mesh, sharding_plan)
         if block_size < 1:
@@ -1511,7 +1584,7 @@ class Corex:
             tail = rows[start - s:]
             if cols.var is not None:
                 tail = S.as_dtensor(tail, mesh, {cols.var.name: 1})
-            yield start, tail
+            yield start, as_kind(tail, self._fit_kind)
             start = s + b
 
     @property
@@ -1524,23 +1597,24 @@ class Corex:
         return int(self.diagnostics.iters_per_stage.sum())
 
     @property
-    def tcs(self) -> torch.Tensor:
-        """Per-factor total correlation (sorted decreasing)."""
-        return self.moments.tcs
+    def tcs(self):
+        """Per-factor total correlation (sorted decreasing), of the kind of
+        the fit's input (`as_kind`), as `mis` and `clusters`."""
+        return as_kind(self.moments.tcs, self._fit_kind)
 
     @property
     def tc(self) -> float:
         return float(torch.sum(self.moments.tcs))
 
     @property
-    def mis(self) -> torch.Tensor:
+    def mis(self):
         """MI matrix I(x_i; y_j), shape (m, p)."""
-        return self.moments.mi
+        return as_kind(self.moments.mi, self._fit_kind)
 
     @property
-    def clusters(self) -> torch.Tensor:
+    def clusters(self):
         """Hard assignment of each variable to argmax_j I(x_i; y_j)."""
-        return torch.argmax(self.moments.mi, dim=0)
+        return as_kind(torch.argmax(self.moments.mi, dim=0), self._fit_kind)
 
     @property
     def history(self) -> dict:
@@ -1621,7 +1695,8 @@ class Corex:
         """sklearn's set_output API: transform='pandas' makes `transform`
         and `fit_transform` return a DataFrame with
         `get_feature_names_out` columns (the index of a DataFrame input
-        kept); 'default' restores tensors; None changes nothing."""
+        kept); 'default' restores the input's kind (`as_kind`); None
+        changes nothing."""
         if transform is None:
             return self
         if transform not in ("default", "pandas"):
@@ -1632,9 +1707,9 @@ class Corex:
             else transform
         return self
 
-    def _maybe_wrap_output(self, z, x_orig):
-        if getattr(self, "_output_transform", None) != "pandas":
-            return z
+    def _as_frame(self, z, x_orig):
+        """The pandas output of `transform`: a DataFrame of the (n, m)
+        tensor `z`, the index of a DataFrame `x_orig` kept."""
         import pandas as pd
         index = x_orig.index if hasattr(x_orig, "index") \
             and hasattr(x_orig, "columns") else None
@@ -1702,6 +1777,7 @@ class Corex:
                 "n_restarts=1, or run Corex(n_restarts=k).fit on the "
                 "full data.")
         check_precision(self.config)
+        kind = input_kind(x)
         x = self._validate_input(x)        # batches of >= 1 row are legal
         acc = self._partial_acc
         expect = acc.p if acc is not None else self.nv
@@ -1747,7 +1823,8 @@ class Corex:
             warm = None   # stale shape (n_hidden changed via set_params)
         corr, mean, std = acc._moments()
         _solve_from_moments(self, corr, mean, std, acc.n_samples,
-                            init_ws=warm, mesh=acc.mesh, plan=acc.plan)
+                            init_ws=warm, mesh=acc.mesh, plan=acc.plan,
+                            kind=kind)
         if self.verbose:
             self._print_verbose()
         return self

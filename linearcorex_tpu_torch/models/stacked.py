@@ -6,7 +6,10 @@ Layers are sequential fits, so this is composition at the API level: `fit`
 trains layer k on layer k-1's `transform` output; `transform` composes
 the projections; `predict` runs the posterior-mean reconstructions back
 down the stack. The factors handed from layer to layer stay tensors on
-the layers' device.
+the layers' device (the layers' private `_transform`/`_predict`): a NumPy
+input is copied to the device once, by layer 1, and the result read back
+once, at the end (`models.corex.as_kind`). Outputs and fitted attributes
+follow the kind of their input, as `Corex`'s do.
 """
 
 from __future__ import annotations
@@ -14,7 +17,7 @@ from __future__ import annotations
 import dataclasses
 from typing import List, Sequence
 
-from linearcorex_tpu_torch.models.corex import Corex
+from linearcorex_tpu_torch.models.corex import Corex, as_kind, input_kind
 
 __all__ = ["StackedCorex"]
 
@@ -71,9 +74,11 @@ class StackedCorex:
                 # so the transform between layers runs on each rank's own
                 # device, as Corex.fit_transform does; an explicit plan is
                 # honored (and fails its validation by name)
-                data = layer.transform(data)
+                data = layer._transform(data)
             else:
-                data = layer.transform(data, mesh=mesh, sharding_plan=lp)
+                data = layer._transform(data, mesh=mesh, sharding_plan=lp)
+        for layer in self.layers:   # every layer reports in x's kind
+            layer._fit_kind = input_kind(x)
         return self
 
     def transform(self, x, level: int = -1, mesh=None, sharding_plan=None):
@@ -83,10 +88,10 @@ class StackedCorex:
             else range(level + 1)
         data = x
         for k in levels:
-            data = self.layers[k].transform(
+            data = self.layers[k]._transform(
                 data, mesh=mesh,
                 sharding_plan=self._layer_plan(sharding_plan, k))
-        return data
+        return as_kind(data, input_kind(x))
 
     def fit_transform(self, x, y=None, mesh=None, sharding_plan=None):
         """sklearn convention: fit the stack, return the deepest factors
@@ -104,11 +109,11 @@ class StackedCorex:
         """List of factor matrices, one per layer (shallow → deep)."""
         out, data = [], x
         for k, layer in enumerate(self.layers):
-            data = layer.transform(
+            data = layer._transform(
                 data, mesh=mesh,
                 sharding_plan=self._layer_plan(sharding_plan, k))
             out.append(data)
-        return out
+        return as_kind(out, input_kind(x))
 
     def predict(self, y, mesh=None, sharding_plan=None):
         """Reconstruct the input from the deepest factors. Under `mesh`
@@ -117,10 +122,10 @@ class StackedCorex:
         data = y
         last = len(self.layers) - 1
         for i, layer in enumerate(reversed(self.layers)):
-            data = layer.predict(
+            data = layer._predict(
                 data, mesh=mesh,
                 sharding_plan=self._layer_plan(sharding_plan, last - i))
-        return data
+        return as_kind(data, input_kind(y))
 
     def inverse_transform(self, y, mesh=None, sharding_plan=None):
         """sklearn spelling of `predict`: deepest factors → input space."""
@@ -128,7 +133,7 @@ class StackedCorex:
 
     @property
     def tcs(self):
-        """Per-layer tensors of per-factor TC."""
+        """Per-layer per-factor TC, of the kind of the fit's input."""
         return [layer.tcs for layer in self.layers]
 
     @property

@@ -36,6 +36,7 @@ import torch
 
 from linearcorex_tpu_torch.models.corex import (Corex, _fit_program,
                                                 check_precision,
+                                                input_kind,
                                                 resolve_config,
                                                 resolve_device,
                                                 resolve_optimizer,
@@ -178,7 +179,8 @@ def fit_from_covariance(sigma, n_samples: int, n_hidden: int,
     `variable_means` (default zeros) fills the model's theta, so
     `transform`/`predict` standardize new data with sigma's scale. sigma
     may be an array or a tensor; it is normalized on the model device in
-    the model dtype.
+    the model dtype, and the fitted attributes are of its kind (numpy
+    arrays for an array, `models.corex.as_kind`).
 
     `mesh=`/`sharding_plan=` (a `shard_vars` plan, the default): each rank
     copies only its row block Σ[I, :] and the (p,) diagonal to its device
@@ -209,7 +211,7 @@ def fit_from_covariance(sigma, n_samples: int, n_hidden: int,
     mean = (torch.zeros(p, dtype=model._dt, device=model._device)
             if variable_means is None else variable_means)
     return _solve_from_moments(model, corr, mean, std, int(n_samples),
-                               mesh=mesh, plan=plan)
+                               mesh=mesh, plan=plan, kind=input_kind(sigma))
 
 
 def _std_from_var(var):
@@ -225,7 +227,7 @@ def _normalize_sigma(sigma):
 
 
 def _solve_from_moments(model, corr, mean, std, n_samples, init_ws=None,
-                        mesh=None, plan=None):
+                        mesh=None, plan=None, kind="numpy"):
     """Shared solve for every moment-input fit (`fit_from_covariance`,
     `GramAccumulator.fit`, `Corex.partial_fit`): record the affine theta,
     resolve the 'auto' knobs against the TRUE sample count (the Gram
@@ -234,6 +236,8 @@ def _solve_from_moments(model, corr, mean, std, n_samples, init_ws=None,
     gram-strategy fit program in place on `model`. `init_ws` warm-starts
     (partial_fit); otherwise the init follows the model's own policy via
     `_resolve_w0`, pretrained weights and init='spectral' included.
+    `kind` is that of the data behind the moments (`models.corex.as_kind`):
+    the fitted attributes' kind.
 
     With `mesh`/`plan` (a validated `shard_vars` plan) `corr` is this
     rank's row block (a Gram `ShardedSamples`) and `mean`/`std` are whole:
@@ -244,6 +248,7 @@ def _solve_from_moments(model, corr, mean, std, n_samples, init_ws=None,
     ensure_compile_cache()   # a moment-input fit may be a process's first
     p = M.n_cols(corr)
     model.n_samples, model.nv = int(n_samples), p
+    model._fit_kind = kind
     model.theta = P.Theta(mean=model._as_tensor(mean),
                           std=model._as_tensor(std))
     check_precision(model.config)
@@ -393,6 +398,9 @@ class GramAccumulator:
         self._s = torch.zeros((rows,), dtype=self.dtype, device=self.device)
         self._x0 = None   # shift point (the first batch's column means)
         self._n = 0
+        # the kind of the batches (`models.corex.input_kind`), that of the
+        # fitted model's attributes: 'tensor' while every batch is one
+        self._kind = None
 
     def update(self, x) -> "GramAccumulator":
         # Screening a host array for NaN/inf is cheap, and a NaN batch
@@ -403,6 +411,7 @@ class GramAccumulator:
             raise ValueError(
                 "batch contains NaN/inf; clean it before accumulation "
                 "(the accumulated Gram cannot be repaired afterwards)")
+        kind = input_kind(x)
         if not isinstance(x, (np.ndarray, torch.Tensor)):
             x = np.asarray(x)
         if x.ndim != 2 or x.shape[1] != self.p:
@@ -426,6 +435,7 @@ class GramAccumulator:
             self._x0 = torch.mean(x, dim=0)
         _update_moments(self._g, self._s, x, self._x0, self._var)
         self._n += x.shape[0]
+        self._kind = "numpy" if "numpy" in (self._kind, kind) else kind
         return self
 
     @property
@@ -465,7 +475,8 @@ class GramAccumulator:
 
         Returns a fitted estimator whose transform/predict/get_covariance
         behave exactly as if fit on the concatenated data with
-        gaussianize='standard'."""
+        gaussianize='standard'. Its fitted attributes are tensors if every
+        batch was one, else numpy arrays (`models.corex.as_kind`)."""
         corr, mean, std = self._moments()
         _reject_missing_values(corex_kwargs, "GramAccumulator.fit")
         corex_kwargs.setdefault("dtype",
@@ -474,4 +485,5 @@ class GramAccumulator:
         model = Corex(n_hidden=n_hidden, gaussianize="standard",
                       **corex_kwargs)
         return _solve_from_moments(model, corr, mean, std, self._n,
-                                   mesh=self.mesh, plan=self.plan)
+                                   mesh=self.mesh, plan=self.plan,
+                                   kind=self._kind)

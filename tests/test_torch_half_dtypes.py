@@ -52,6 +52,8 @@ DTYPES = ["bfloat16", "float16"]
 # TC bound in units in the last place of the dtype at |TC|
 ULPS = {"bfloat16": 2, "float16": 12}
 MANTISSA = {"bfloat16": 7, "float16": 10}
+# NumPy outputs: numpy has no bfloat16, which reads back as float32 exactly
+HOST = {"bfloat16": np.float32, "float16": np.float16}
 TORCH = {"bfloat16": torch.bfloat16, "float16": torch.float16}
 
 
@@ -81,6 +83,12 @@ def _partition(clusters):
 def _host(t):
     return t.float().numpy() if isinstance(t, torch.Tensor) \
         else np.asarray(t, np.float32)
+
+
+def _assert_in_dtype(a, dtype):
+    """The host array `a` holds values of `dtype` only."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    assert torch.equal(t.to(TORCH[dtype]).to(t.dtype), t)
 
 
 def _assert_same_result(j_tc, j_clusters, t_tc, t_clusters, dtype):
@@ -171,7 +179,9 @@ def test_stacked_matches_jax(dtype, x):
     c = lct.StackedCorex([4, 2], seed=0, dtype=dtype, device="cpu").fit(x)
     _assert_same_result(j.tc, j.layers[0].clusters, c.tc,
                         c.layers[0].clusters, dtype)
-    assert c.transform(x).dtype == TORCH[dtype]
+    assert c.transform(x).dtype == HOST[dtype]
+    _assert_in_dtype(c.transform(x), dtype)
+    assert c.transform(torch.as_tensor(x)).dtype == TORCH[dtype]
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -191,9 +201,9 @@ def test_pick_n_hidden_matches_jax(dtype, x):
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_serving_outputs_in_the_model_dtype(dtype, x):
     """A JAX fit carried across (`corex_from_numpy`, bfloat16 arrays
-    through their 16-bit words): every serving output is in the model
-    dtype, as the JAX package's are, and within a few ulps of its
-    values."""
+    through their 16-bit words): every serving output holds values of the
+    model dtype, as the JAX package's do, and is within a few ulps of its
+    values. NumPy in gives NumPy out (bfloat16 as float32, exactly)."""
     j = lc.Corex(n_hidden=4, seed=0, dtype=dtype).fit(x)
     state = {"ws": np.asarray(j.ws), "theta_mean": np.asarray(j.theta.mean),
              "theta_std": np.asarray(j.theta.std)}
@@ -205,6 +215,8 @@ def test_serving_outputs_in_the_model_dtype(dtype, x):
     assert c.tc == float(j.tc)
     dt = TORCH[dtype]
     y = c.transform(x)
+    yt = c.transform(torch.as_tensor(x))
+    assert yt.dtype == dt and np.array_equal(yt.float().numpy(), y)
     v = np.linspace(-1, 1, 32)
     outs = {
         "transform": (y, j.transform(x)),
@@ -219,7 +231,8 @@ def test_serving_outputs_in_the_model_dtype(dtype, x):
     }
     rel = 2.0 ** -MANTISSA[dtype]
     for name, (ours, theirs) in outs.items():
-        assert ours.dtype == dt, name
+        assert ours.dtype == HOST[dtype], name
+        _assert_in_dtype(ours, dtype)
         assert str(theirs.dtype) == dtype, name
         a, b = _host(ours), _host(theirs)
         assert np.abs(a - b).max() <= 8 * rel * max(1.0, np.abs(b).max()), \
@@ -286,7 +299,7 @@ def test_float16_checkpoints_cross_both_ways(x, tmp_path):
     assert c.ws.dtype == torch.float16
     assert np.array_equal(c.ws.numpy(), np.asarray(j.ws))
     assert c.tc == float(j.tc)
-    assert np.array_equal(c.transform(x).numpy().view(np.int16),
+    assert np.array_equal(c.transform(x).view(np.int16),
                           np.asarray(j.transform(x)).view(np.int16))
 
     t = lct.Corex(n_hidden=4, seed=0, dtype="float16", device="cpu").fit(x)
@@ -295,7 +308,7 @@ def test_float16_checkpoints_cross_both_ways(x, tmp_path):
     assert str(k.ws.dtype) == "float16"
     assert np.array_equal(np.asarray(k.ws), t.ws.numpy())
     assert float(k.tc) == t.tc
-    assert np.array_equal(np.asarray(k.clusters), t.clusters.numpy())
+    assert np.array_equal(np.asarray(k.clusters), t.clusters)
 
 
 def test_bfloat16_checkpoint_bytes_equal_and_both_loads_raise(x, tmp_path):

@@ -104,7 +104,7 @@ def test_overlap_fit_f64_step_matched(strategy, optimizer):
         assert iters == ref_iters
         assert abs(c.tc - ref_tc) < TOL64
         assert np.abs(c.ws.numpy() - ref_ws).max() < TOL64
-        assert np.array_equal(c.clusters.numpy(), ref_cl)
+        assert np.array_equal(c.clusters, ref_cl)
 
 
 def test_overlap_auto_resolves_momentum_and_no_chain():
@@ -126,7 +126,7 @@ def test_overlap_bf16_fit_matches_jax():
               tol=1e-4, moment_strategy="gram")
     c = lct.Corex(device="cpu", **kw).fit(x, init_ws=w0)
     j = lc.Corex(**kw).fit(x, init_ws=w0)
-    assert np.array_equal(c.clusters.numpy(), np.asarray(j.clusters))
+    assert np.array_equal(c.clusters, np.asarray(j.clusters))
     assert abs(c.tc - float(j.tc)) <= 1e-2 * abs(float(j.tc))
 
 

@@ -127,7 +127,7 @@ def _fit(model):
     """What the parent asserts of a fitted estimator."""
     return dict(ws=model.ws.numpy(), tc=float(model.tc),
                 iters=model.diagnostics.iters_per_stage.numpy(),
-                clusters=model.clusters.numpy(),
+                clusters=model.clusters,
                 n_samples=model.n_samples, plan=model._serving_plan)
 
 
@@ -141,7 +141,7 @@ def _raised(fn):
 
 
 def _whole(t):
-    return (t.full_tensor() if hasattr(t, "full_tensor") else t).numpy()
+    return np.asarray(t.full_tensor() if hasattr(t, "full_tensor") else t)
 
 
 def _accumulate(x, batch, **kw):
@@ -207,7 +207,7 @@ def _world(rank, csv_path, ck_root):
     out["acc_corr"] = _whole(corr)
     model = acc.fit(n_hidden=8, seed=0)
     keep("acc", model)
-    out["acc_transform"] = model.transform(x[:16], mesh=var4).numpy()
+    out["acc_transform"] = model.transform(x[:16], mesh=var4)
     # the same plan on a data x var mesh: the ranks along `data` hold the
     # same row block
     keep("acc_data_var", _accumulate(x, 256, mesh=dv, sharding_plan=DATA_VAR,
@@ -307,20 +307,20 @@ def _world(rank, csv_path, ck_root):
                                                    sharding_plan=DATA_VAR)
     stacks["stack_e2e"] = sm
     for name, st in stacks.items():
-        out[name] = dict(tc=st.tc, tcs=[t.numpy() for t in st.tcs],
+        out[name] = dict(tc=st.tc, tcs=st.tcs,
                          plans=[la._serving_plan for la in st.layers])
         for la in st.layers:
             digest.update(la.ws.numpy().tobytes())
     ys = lct.StackedCorex([8, 2], **STACK_E2E).fit(x).transform(x)
     alls = sm.transform_all(x, mesh=dv, sharding_plan=DATA_VAR)
     out["stack_serving"] = dict(
-        y=sm.transform(x, mesh=dv, sharding_plan=DATA_VAR).numpy(),
-        xh=_whole(sm.predict(ys.numpy(), mesh=dv, sharding_plan=DATA_VAR)),
-        xh_inverse=_whole(sm.inverse_transform(ys.numpy(), mesh=dv,
+        y=sm.transform(x, mesh=dv, sharding_plan=DATA_VAR),
+        xh=_whole(sm.predict(ys, mesh=dv, sharding_plan=DATA_VAR)),
+        xh_inverse=_whole(sm.inverse_transform(ys, mesh=dv,
                                                sharding_plan=DATA_VAR)),
         all_shapes=[tuple(a.shape) for a in alls],
         fit_transform=lct.StackedCorex([8, 2], **STACK_E2E).fit_transform(
-            x, mesh=dv, sharding_plan=DATA_VAR).numpy())
+            x, mesh=dv, sharding_plan=DATA_VAR))
     # restart sweeps in every layer: a restarts x data mesh, and a
     # restart-only mesh, whose transform between layers runs per rank
     x = _x_restarts()
@@ -331,7 +331,7 @@ def _world(rank, csv_path, ck_root):
         out[name] = [dict(ws=la.ws.numpy(), best=la.best_restart_)
                      for la in st.layers]
     out["restarts_only_fit_transform"] = lct.StackedCorex(
-        [4, 2], **RESTART_KW).fit_transform(x, mesh=r4).numpy()
+        [4, 2], **RESTART_KW).fit_transform(x, mesh=r4)
     out["digest"] = digest.hexdigest()
     if rank:
         return {"digest": out["digest"], "callbacks": out["callbacks"]}
@@ -379,7 +379,7 @@ def single(csv_path, tmp_path_factory):
     out["acc_corr"] = acc.correlation().numpy()
     model = acc.fit(n_hidden=8, seed=0)
     out["acc"] = _fit(model)
-    out["acc_transform"] = model.transform(x[:16]).numpy()
+    out["acc_transform"] = model.transform(x[:16])
     out["partial_fit"] = _fit(_partial(_x_pf()))
     x = _x_cov()
     out["cov"] = _fit(lct.fit_from_covariance(np.cov(x.T, bias=True), 900,
@@ -398,18 +398,18 @@ def single(csv_path, tmp_path_factory):
         init_ws=_w_resume()))
     x = _x_stack()
     st = lct.StackedCorex([8, 2], seed=0, **KW64).fit(x)
-    out["stack"] = dict(tc=st.tc, tcs=[t.numpy() for t in st.tcs])
+    out["stack"] = dict(tc=st.tc, tcs=st.tcs)
     x = _x_stack_e2e()
     ss = lct.StackedCorex([8, 2], **STACK_E2E).fit(x)
     ys = ss.transform(x)
-    out["stack_e2e"] = dict(tc=ss.tc, y=ys.numpy(),
-                            xh=ss.predict(ys).numpy(),
-                            tcs=[t.numpy() for t in ss.tcs])
+    out["stack_e2e"] = dict(tc=ss.tc, y=ys,
+                            xh=ss.predict(ys),
+                            tcs=ss.tcs)
     x = _x_restarts()
     rs = lct.StackedCorex([4, 2], **RESTART_KW).fit(x)
     out["restarts"] = [dict(ws=la.ws.numpy(), best=la.best_restart_)
                        for la in rs.layers]
-    out["restarts_y"] = rs.transform(x).numpy()
+    out["restarts_y"] = rs.transform(x)
     return out
 
 

@@ -55,6 +55,12 @@ SERVED = {"ns": {}, "overlap": dict(discourage_overlap=False, max_iter=100)}
 
 VAR = S.ShardingPlan(shard_samples=False, shard_vars=True)
 FACTOR = S.ShardingPlan(shard_samples=False, shard_factors=True)
+HALF_DTYPES = ("bfloat16", "float16")
+HALF_KW = dict(n_hidden=4, seed=0, max_iter=2000, device="cpu")
+# TC bound in units in the last place of the dtype at |TC|, and the
+# dtype's mantissa bits (tests/test_torch_half_dtypes.py)
+HALF_ULPS = {"bfloat16": 2, "float16": 12}
+HALF_MANTISSA = {"bfloat16": 7, "float16": 10}
 DATA_VAR = S.ShardingPlan(shard_samples=True, shard_vars=True)
 DATA_FACTOR = S.ShardingPlan(shard_samples=True, shard_factors=True)
 LAYOUTS = {"var": ((("var", 4),), VAR),
@@ -88,6 +94,14 @@ def _w0():
     return np.random.RandomState(42).normal(scale=1 / 8, size=(M, P))
 
 
+def _x_half():
+    """n=400, p=32, m=4: four blocks of eight (the half-dtype tests' data
+    at 400 rows)."""
+    rng = np.random.RandomState(0)
+    z = rng.normal(size=(400, 4))
+    return np.repeat(z, 8, axis=1) * 0.9 + 0.44 * rng.normal(size=(400, 32))
+
+
 def _std(x, dtype=torch.float64):
     return TP.fit_preprocess(torch.as_tensor(x, dtype=dtype), "standard")[0]
 
@@ -116,11 +130,11 @@ def _local(t):
         return t.to_local().numpy(), [
             f"Shard({p.dim})" if p.is_shard() else "Replicate"
             for p in t.placements]
-    return t.numpy(), None
+    return np.asarray(t), None
 
 
 def _whole(t):
-    return (t.full_tensor() if hasattr(t, "full_tensor") else t).numpy()
+    return np.asarray(t.full_tensor() if hasattr(t, "full_tensor") else t)
 
 
 # ---------------------------------------------------------------------------
@@ -276,7 +290,7 @@ def _world(rank):
     cf = lct.Corex(device="cpu", seed=0, moment_strategy="samples", **SHORT)
     out["fit_transform"] = dict(
         y=cf.fit_transform(x, mesh=meshes["data_var"],
-                           sharding_plan=DATA_VAR).numpy(),
+                           sharding_plan=DATA_VAR),
         plan=cf._serving_plan)
 
     # serving under the four plans, both solver paths: a fresh copy of one
@@ -294,12 +308,12 @@ def _world(rank):
             S.reset_collective_counts()
             y = sm.transform(x, mesh=mesh, sharding_plan=plan)
             out[f"counts_transform_{name}_{path}"] = _counts()
-            xh = sm.predict(y.numpy(), mesh=mesh)           # sticky plan
+            xh = sm.predict(y, mesh=mesh)           # sticky plan
             mv = sm.covariance_matvec(v1, mesh=mesh)
             mm = sm.covariance_matmat(vb, mesh=mesh, sharding_plan=plan)
             blocks = list(sm.covariance_blocks(24, mesh=mesh))
             out[f"serving_{name}_{path}"] = dict(
-                y=y.numpy(), xh=_whole(xh), xh_local=_local(xh),
+                y=y, xh=_whole(xh), xh_local=_local(xh),
                 score=float(sm.score(x, mesh=mesh, sharding_plan=plan)),
                 mv=_whole(mv), mv_local=_local(mv), mm=_whole(mm),
                 starts=[s for s, _ in blocks],
@@ -310,8 +324,8 @@ def _world(rank):
     se = copy.deepcopy(fitted_ns)
     y, det = se.transform(x, details=True, mesh=meshes["data_var"],
                           sharding_plan=DATA_VAR)
-    out["serving_details"] = dict(y=y.numpy(), tc=float(det["TC"]),
-                                  rho=det["rho"].numpy())
+    out["serving_details"] = dict(y=y, tc=float(det["TC"]),
+                                  rho=det["rho"])
     # after save_corex / load_corex, and the sticky plan across calls
     from linearcorex_tpu_torch.utils.checkpoint import load_corex, save_corex
     with tempfile.TemporaryDirectory() as tmp:
@@ -320,7 +334,7 @@ def _world(rank):
         served = load_corex(path, device="cpu")
     out["served"] = dict(
         y=served.transform(x, mesh=meshes["data_var"],
-                           sharding_plan=DATA_VAR).numpy(),
+                           sharding_plan=DATA_VAR),
         score=float(served.score(x, mesh=meshes["data_var"])))
     sticky = copy.deepcopy(fitted_ns)
     sticky.transform(x, mesh=meshes["var"], sharding_plan=VAR)
@@ -358,6 +372,18 @@ def _world(rank):
         serve_axis=_raised(lambda: se.covariance_matvec(
             np.zeros(P), mesh=data4, sharding_plan=VAR)),
     )
+
+    # half dtypes under the data and the var plan (the iterations may
+    # differ from the plain fit's: a sum over rows or over p adds in
+    # another order and an accept flips)
+    for dt in HALF_DTYPES:
+        for name, (mesh, plan) in (("data", (data4, None)),
+                                   ("var", (meshes["var"], VAR))):
+            hm = lct.Corex(**HALF_KW, dtype=dt).fit(
+                _x_half(), mesh=mesh, sharding_plan=plan)
+            out[f"half_{dt}_{name}"] = dict(tc=hm.tc,
+                                            clusters=hm.clusters)
+
     out["digest"] = digest.hexdigest()
     if rank:
         return {"digest": out["digest"]}
@@ -625,7 +651,7 @@ def test_fit_transform_threads_a_var_plan(world):
     y_ref = lct.Corex(device="cpu", moment_strategy="samples", seed=0,
                       **SHORT).fit_transform(_x512())
     got = world["fit_transform"]
-    assert np.abs(got["y"] - y_ref.numpy()).max() < TOL
+    assert np.abs(got["y"] - y_ref).max() < TOL
     assert got["plan"] == DATA_VAR
 
 
@@ -643,15 +669,15 @@ def test_serving_mesh_equivalence(world, served, layout, path):
     x, models = served
     cs = models[path]
     got = world[f"serving_{layout}_{path}"]
-    y_ref = cs.transform(x).numpy()
+    y_ref = cs.transform(x)
     assert np.abs(got["y"] - y_ref).max() < SERVE_TOL
-    assert np.abs(got["xh"] - cs.predict(y_ref).numpy()).max() < SERVE_TOL
+    assert np.abs(got["xh"] - cs.predict(y_ref)).max() < SERVE_TOL
     assert abs(got["score"] - float(cs.score(x))) < SERVE_TOL
     v = np.random.RandomState(3).normal(size=P)
     vb = np.random.RandomState(4).normal(size=(P, 5))
-    assert np.abs(got["mv"] - cs.covariance_matvec(v).numpy()).max() \
+    assert np.abs(got["mv"] - cs.covariance_matvec(v)).max() \
         < SERVE_TOL
-    assert np.abs(got["mm"] - cs.covariance_matmat(vb).numpy()).max() \
+    assert np.abs(got["mm"] - cs.covariance_matmat(vb)).max() \
         < SERVE_TOL
     assert got["sticky"]
 
@@ -668,7 +694,7 @@ def test_covariance_blocks_sharded_bitequal(world, served, layout, path):
     assert got["starts"] == [s for s, _ in ref] == [0, 24, 48]
     for g, (_, r) in zip(got["blocks"], ref):
         assert g.shape == tuple(r.shape)
-        assert np.array_equal(g, r.numpy())
+        assert np.array_equal(g, r)
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
@@ -709,15 +735,15 @@ def test_serving_details_under_a_var_plan(world, served):
     x, models = served
     y_ref, det_ref = models["ns"].transform(x, details=True)
     got = world["serving_details"]
-    assert np.abs(got["y"] - y_ref.numpy()).max() < SERVE_TOL
+    assert np.abs(got["y"] - y_ref).max() < SERVE_TOL
     assert abs(got["tc"] - float(det_ref["TC"])) < SERVE_TOL
-    assert np.abs(got["rho"] - det_ref["rho"].numpy()).max() < SERVE_TOL
+    assert np.abs(got["rho"] - det_ref["rho"]).max() < SERVE_TOL
 
 
 def test_serving_after_load_corex(world, served):
     x, models = served
     got = world["served"]
-    assert np.abs(got["y"] - models["ns"].transform(x).numpy()).max() \
+    assert np.abs(got["y"] - models["ns"].transform(x)).max() \
         < SERVE_TOL
     assert abs(got["score"] - float(models["ns"].score(x))) < SERVE_TOL
 
@@ -729,7 +755,7 @@ def test_serving_plan_sticky_and_get_covariance_raises(world, served):
     kind, msg = got["get_cov"]
     assert kind == "ValueError" and "var-sharded" in msg
     assert np.abs(got["blocks0"]
-                  - models["ns"].get_covariance().numpy()).max() < 1e-12
+                  - models["ns"].get_covariance()).max() < 1e-12
     # a single-device refit resets the plan and the dense export
     assert got["after_refit"] == (None, (P, P))
 
@@ -831,3 +857,24 @@ def solo():
 @pytest.mark.parametrize("dt", ["float32", "int8", "momentum"])
 def test_a_world_of_one_is_bitwise_the_plain_fit(solo, layout, dt):
     assert solo[layout, dt]
+
+
+def _partition(clusters):
+    c = np.asarray(clusters)
+    return sorted(tuple(np.flatnonzero(c == k)) for k in np.unique(c))
+
+
+@pytest.mark.parametrize("plan", ["data", "var"])
+@pytest.mark.parametrize("dtype", HALF_DTYPES)
+def test_half_dtype_mesh_fit_follows_the_plain_fit(world, dtype, plan):
+    """bfloat16 and float16 fits under the data plan (rows over 4 ranks)
+    and the var plan (columns over 4) against the plain fit: TC within the
+    half-dtype tests' ulps of it and the same partition of the variables
+    (factors whose TCs tie in the dtype may sort in another order). The
+    iterations are not held: sums over rows or over p add in another
+    order, and an accept flips."""
+    ref = lct.Corex(**HALF_KW, dtype=dtype).fit(_x_half())
+    got = world[f"half_{dtype}_{plan}"]
+    ulp = 2.0 ** (np.floor(np.log2(abs(ref.tc))) - HALF_MANTISSA[dtype])
+    assert abs(got["tc"] - ref.tc) <= HALF_ULPS[dtype] * ulp
+    assert _partition(got["clusters"]) == _partition(ref.clusters)

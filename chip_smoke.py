@@ -241,6 +241,19 @@ non-zero and does not print the final line.
              warmup launches the lane kernel, and its sweep is the same
              sweep run in the script's own process (never warmed) bit
              for bit.
+   scaling_example  examples/torch_scaling.py --device cuda in a fresh
+             process (`python3 -u -c "import chip_smoke as C;
+             C.scaling_child()"`, which runs the example as __main__): its
+             mesh sections in one NCCL world of one rank per card (a world
+             of one on a one-card machine, which passes over the restarts
+             x data sweep and the multi-slice workflow and fits on one
+             device instead). Gates: exit 0 within SCALING_TIMEOUT; every
+             section's line printed, and the lines of sections passed over
+             naming the world size; the blocked export within 1e-5 of the
+             dense covariance; the chain kernel launched in the example's
+             own process (its single-device fits). Reported: each line
+             with its seconds since the process started and since the
+             line before, and the phase's wall.
 7. timing    fit_core iterations/s at p=10k, m=512 (gram, fixed_point,
              anneal=False, tol=0, 200 iterations): float32 with the kernel
              and with the plain chain, bf16 and int8 with the kernel; CUDA
@@ -302,6 +315,8 @@ WARMUP_ROWS = 4096      # rows of a serving batch in phase warmup
 # per stage, for phase warmup's sweeps (selection runs 2000, ~29 s a sweep)
 WARMUP_SWEEP_MAX_ITER = 200
 WARMUP_CHILD_TIMEOUT = 600
+SCALING_TIMEOUT = 600   # seconds for phase scaling_example's process
+EXPORT_TOL = 1e-5       # the example's blocked export against the dense one
 WIDE_N = 2000           # rows of phase default_paths' n < p rows
 DEFAULT_MAX_ITER = 300  # per stage, for phase default_paths (a cut depth)
 F64_TOL = 1e-8          # float64 card fit vs float64 CPU fit, TC and W
@@ -2582,6 +2597,106 @@ def warmup_phase(card):
     return launches, lane_launches
 
 
+SCALING_EXAMPLE = os.path.join("examples", "torch_scaling.py")
+
+
+def scaling_child(device="cuda"):
+    """The fresh process of phase scaling_example, started by
+    `scaling_example_phase` as `python3 -u -c "import chip_smoke as C;
+    C.scaling_child()"`: runs examples/torch_scaling.py as `__main__` with
+    `--device <device>` (its world: one rank per card), the chain kernel's
+    launch counts set to 0 just before; then prints the launches of this
+    process's fits (the ranks count their own) as one JSON line."""
+    import runpy
+
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        SCALING_EXAMPLE)
+    sys.argv = [path, "--device", device]
+    ns_chain.launches = ns_chain.lane_launches = 0
+    runpy.run_path(path, run_name="__main__")
+    print(json.dumps({"launches": ns_chain.launches,
+                      "lane_launches": ns_chain.lane_launches}), flush=True)
+
+
+def scaling_sections(world):
+    """The first words of every line examples/torch_scaling.py prints in a
+    world of `world` ranks: a section run, or passed over naming the
+    world size (an odd world passes over the restarts x data sweep and
+    the multi-slice workflow, and fits on one device instead)."""
+    skipped = f"passed over (a world of {world} rank(s)"
+    lines = ["restart sweep: best TC", f"world of {world} ",
+             f"sharded fit over {world} rank(s): TC", "stacked: layer TCs",
+             "streaming fit from 4096 samples: TC",
+             "fit from covariance matrix:", "int8 fit: TC",
+             "blocked covariance export: (128, 128)"]
+    if world % 2:
+        return lines + [f"estimator restart sweep on the mesh: {skipped}",
+                        f"multi-slice fit: {skipped}",
+                        "single-device fit (warmed): TC"]
+    return lines + ["estimator restart sweep on the mesh: best TC",
+                    "multi-slice fit (warmed): TC",
+                    "sharded serving: factors (2048, 8)",
+                    "multi-slice checkpointed fit: TC"]
+
+
+def scaling_example_phase(card, device="cuda"):
+    """Phase scaling_example (see the module docstring): the port's
+    scaling example in a fresh process, each of its lines timed as it
+    arrives. Returns ({path: one-lane launches}, {path: lane launches})
+    of the example's own process."""
+    import re
+    import threading
+
+    import torch
+
+    world = torch.cuda.device_count() if device == "cuda" else 4
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    with tempfile.TemporaryFile("w+") as err:
+        proc = subprocess.Popen(
+            [sys.executable, "-u", "-c",
+             f"import chip_smoke as C; C.scaling_child({device!r})"],
+            cwd=here, stdout=subprocess.PIPE, stderr=err, text=True)
+        watchdog = threading.Timer(SCALING_TIMEOUT, proc.kill)
+        watchdog.start()
+        try:
+            timed = [(time.perf_counter() - t0, line.rstrip("\n"))
+                     for line in proc.stdout]
+            code = proc.wait()
+        finally:
+            watchdog.cancel()
+        err.seek(0)
+        log = err.read()
+    seconds = time.perf_counter() - t0
+    out = "\n".join(line for _, line in timed)
+    check(code == 0, f"{SCALING_EXAMPLE} exited with {code} after "
+          f"{seconds:.1f} s:\n{out[-3000:]}\n{log[-5000:]}")
+    for want in scaling_sections(world):
+        check(any(line.startswith(want) for _, line in timed),
+              f"{SCALING_EXAMPLE} printed no line starting {want!r}:\n{out}")
+    export = float(re.search(r"max\|Δ\| vs dense = (\S+)", out)[1])
+    check(export <= EXPORT_TOL, f"{SCALING_EXAMPLE}: the blocked export is "
+          f"{export:.3e} from the dense covariance (bound {EXPORT_TOL:g})")
+    counts = json.loads(timed[-1][1])
+    check(counts["launches"] > 0 and counts["lane_launches"] > 0,
+          f"{SCALING_EXAMPLE}: its fits launched the chain kernel "
+          f"{counts['launches']} times and its lane entry "
+          f"{counts['lane_launches']} times; both must run")
+    # each line's seconds: from the previous line (the first from the
+    # process start, import and the CUDA context included)
+    lines, last = [], 0.0
+    for at, line in timed[:-1]:
+        lines.append(dict(line=line, at_s=at, section_s=at - last))
+        last = at
+    emit("scaling_example", world=world, exit_code=code, seconds=seconds,
+         export_max_abs=export, launches=counts["launches"],
+         lane_launches=counts["lane_launches"], lines=lines, card=card)
+    return ({"scaling_example": counts["launches"]},
+            {"scaling_example": counts["lane_launches"]})
+
+
 def timed_operands(dev):
     """The north-star operands for the timing and profile phases: the Gram
     matrix of standardized block data in each mode, and a seeded W0."""
@@ -2867,6 +2982,13 @@ def main():
     warm_launches, warm_lane_launches = warmup_phase(card)
     launches.update(warm_launches)
     lane_launches.update(warm_lane_launches)
+
+    # the port's scaling example, in a fresh process: a world of one rank
+    # per card
+    torch.cuda.empty_cache()
+    example_launches, example_lane_launches = scaling_example_phase(card)
+    launches.update(example_launches)
+    lane_launches.update(example_lane_launches)
 
     # 7. timing
     operands, w0 = timed_operands(dev)

@@ -212,6 +212,37 @@ non-zero and does not print the final line.
              equal, TC and W within 1e-8); the fixed point is reported
              with the iteration where the pair parts (its near-singular
              m x m inverse parts two LAPACKs at this shape).
+             oracle_card: the card against the port's float64 oracle
+             (linearcorex_tpu_torch.oracle, NumPy and SciPy on the host)
+             from the same W0. At n = p = 10,000, m = 512 (the block data
+             copied to the host as float64, max_iter=ORACLE_MAX_ITER a
+             stage, the only cut; the phase fails first if one timed
+             oracle evaluation projects the two oracle fits past
+             ORACLE_HOST_BUDGET seconds): momentum on gram and on samples
+             against one oracle momentum fit, each step-matched (the same
+             iterations per stage, every iteration's TC within 1e-8
+             relative, W within 1e-8, equal clusters, transform of the
+             10,000 rows within 1e-8 of its largest magnitude); the fixed
+             point reported with the iteration where it parts. At n =
+             2,000, p = 1,024, m = 8 (float64_card_vs_cpu's generator)
+             every row of ORACLE_ROWS in float64 (fixed point, momentum
+             and gd on gram; momentum on samples; the overlap objective
+             on both; init='spectral'; stage_subsample=0.5;
+             'outliers'; missing values) against OracleCorex with the
+             same keywords, each but the fixed point step-matched at 1e-8
+             on the iterations per stage, clusters, TC, W, tcs, mis,
+             transform(details=True), predict and get_covariance; the
+             fixed point (its stages oscillate to max_iter on this data,
+             where an accept flips between BLAS orders) held to the same
+             iterations per stage and clusters and final TC and W within
+             ORACLE_FP_TOL, with where it parts; the fixed point at m =
+             32 reported with where it parts;
+             float32 through the chain kernel (use_pallas='always',
+             launches counted) with the oracle's clusters and TC within
+             1e-3 relative; three float64 restart lanes, momentum lanes
+             each step-matched with the oracle fit from its W0 and
+             fixed-point lanes held as the fixed point's row. Every row
+             reports both walls.
    selection pick_n_hidden on block data with n=2000, p=1024 and 4
              planted blocks of 256 (max_n_hidden=8, repeat=4,
              max_iter=2000), padded and sequential, criterion 'tc' and
@@ -322,6 +353,39 @@ DEFAULT_MAX_ITER = 300  # per stage, for phase default_paths (a cut depth)
 F64_TOL = 1e-8          # float64 card fit vs float64 CPU fit, TC and W
 F64_MAX_ITER = 300      # per stage, for phase float64_card_vs_cpu
 F64_GATED = ("momentum_gram", "momentum_samples", "overlap_gram")
+# phase oracle_card: per stage, for the full-width rows (PERF.md section 4
+# gives why: the oracle's seconds per iteration on the card machine's host)
+ORACLE_MAX_ITER = 8
+ORACLE_TC_REL = 1e-8    # full width: every iteration's TC, relative
+# the most seconds the two full-width oracle fits may be projected to take
+# on the host (the projection runs short of the fits' wall): the rest of
+# the script's 1200 s is the other phases' (PERF.md section 4)
+ORACLE_HOST_BUDGET = 300.0
+# the fixed point's small rows and lanes: final TC and W (PERF.md section 4)
+ORACLE_FP_TOL = 1e-6
+ORACLE_SMALL = (2000, 1024, 8, 8, 32)   # n, p, m, blocks, the m of a pair
+ORACLE_LANES = 3
+ORACLE_MISSING = -999.0
+# phase oracle_card's small rows: (name, keywords). Every row but
+# 'spectral' starts from the phase's W0. The fixed point's rows are held
+# to a weaker gate (ORACLE_FP_TOL): on this data its annealed stages
+# oscillate and run to max_iter, and two BLAS summation orders flip an
+# accept there (the JAX package's float64 CPU fit parts from the oracle at
+# the same iteration as the card; ROADMAP Queue 3).
+ORACLE_ROWS = [
+    ("fixed_point_gram", dict(optimizer="fixed_point",
+                              moment_strategy="gram")),
+    ("momentum_gram", dict(moment_strategy="gram")),
+    ("gd_gram", dict(optimizer="gd", moment_strategy="gram")),
+    ("momentum_samples", dict(moment_strategy="samples")),
+    ("overlap_gram", dict(discourage_overlap=False, moment_strategy="gram")),
+    ("overlap_samples", dict(discourage_overlap=False,
+                             moment_strategy="samples")),
+    ("spectral", dict(init="spectral", seed=0)),
+    ("stage_subsample", dict(stage_subsample=0.5, moment_strategy="samples")),
+    ("outliers", dict(gaussianize="outliers")),
+    ("missing_values", dict(missing_values=ORACLE_MISSING)),
+]
 # _mm_bf16 on the card vs the exact (float64) product of the bf16-rounded
 # operands, relative to its largest magnitude. The tensor cores' float32
 # accumulation itself is 1.2e-5-2.2e-5 off at K = 10,000 on an H100 (a
@@ -1471,26 +1535,38 @@ def check_north_star(name, model, launches, x, tc_f32,
                 blocks_bar=BLOCKS_BAR, blocks_bar_met=whole >= BLOCKS_BAR)
 
 
-def counted(fn, lanes=False):
+def _timed(fn, device="cuda"):
+    """(fn(), wall seconds), the card synchronized before and after (not
+    with device="cpu", a CPU rehearsal or a host-only fn)."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if device == "cuda":
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def counted(fn, lanes=False, device="cuda"):
     """Run fn() with the chain kernel's launch counts set to 0 just before
     and read just after. Returns (result, launches, seconds, warnings
     raised): the one-lane entry's launches, or the lane entry's with
     `lanes`; the other entry must not have run. Peak device memory of the
-    run is left in torch.cuda.max_memory_allocated()."""
+    run is left in torch.cuda.max_memory_allocated(). With device="cpu"
+    (a CPU rehearsal) nothing is synchronized and no peak is kept."""
     import warnings
 
     import torch
     from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
 
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
     ns_chain.launches = ns_chain.lane_launches = 0
-    t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
-        out = fn()
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+        out, seconds = _timed(fn, device)
     ran, other = ns_chain.launches, ns_chain.lane_launches
     if lanes:
         ran, other = other, ran
@@ -2093,7 +2169,8 @@ def float64_card_vs_cpu(card):
              step_matched=matched, iters_per_stage_card=iters[0],
              iters_per_stage_cpu=iters[1], tc_card=gpu.tc, tc_cpu=cpu.tc,
              tc_abs_diff=tc_diff, w_max_abs_diff=w_diff, bound=F64_TOL,
-             parts_at=_first_parting(gpu, cpu), card_seconds=fits["cuda"][1],
+             parts_at=_first_parting(gpu.history, cpu.history)[0],
+             card_seconds=fits["cuda"][1],
              cpu_seconds=fits["cpu"][1], card=card)
         check(matched or name not in F64_GATED,
               f"float64 fit '{name}' on the card is not step-matched with "
@@ -2103,26 +2180,359 @@ def float64_card_vs_cpu(card):
          card=card)
 
 
-def _first_parting(a, b):
-    """Where two fits' per-iteration TC histories first differ by more than
-    F64_TOL: {stage, iteration, largest difference before it}, or None."""
+def _tc_track(history):
+    """The per-stage TC histories and the iterations per stage of a fit's
+    reference-style `history` dict (a port Corex's or an OracleCorex's)."""
     import numpy as np
 
-    ha, hb = (m.diagnostics.tc_history.cpu().numpy() for m in (a, b))
-    ia, ib = (m.diagnostics.iters_per_stage.tolist() for m in (a, b))
-    worst = 0.0
+    iters = [int(k) for k in history["iters_per_stage"]]
+    tc = np.asarray(history["TC"], dtype=np.float64)
+    return np.split(tc, np.cumsum(iters)[:-1]), iters
+
+
+def _first_parting(a, b, tol=F64_TOL, relative=False):
+    """Where two fits' per-iteration TC histories (their `history` dicts)
+    first differ by more than `tol`, absolute or, with `relative`, relative
+    to b's TC: ({stage, iteration, largest difference before it} or None,
+    the largest absolute and the largest relative difference over all the
+    iterations both ran)."""
+    import numpy as np
+
+    (ha, ia), (hb, ib) = _tc_track(a), _tc_track(b)
+    parting, worst, most_abs, most_rel = None, 0.0, 0.0, 0.0
     for s, (ka, kb) in enumerate(zip(ia, ib)):
         k = min(ka, kb)
-        d = np.abs(ha[s, :k] - hb[s, :k])
-        off = np.flatnonzero(d > F64_TOL)
+        d = np.abs(ha[s][:k] - hb[s][:k])
+        rel = d / np.abs(hb[s][:k])
+        most_abs = max(most_abs, float(d.max(initial=0.0)))
+        most_rel = max(most_rel, float(rel.max(initial=0.0)))
+        if parting is not None:
+            continue
+        if relative:
+            d = rel
+        off = np.flatnonzero(d > tol)
         if off.size:
-            return dict(stage=s, iteration=int(off[0]),
-                        max_diff_before=max(worst, float(
-                            d[:off[0]].max(initial=0.0))))
+            parting = dict(stage=s, iteration=int(off[0]),
+                           max_diff_before=max(worst, float(
+                               d[:off[0]].max(initial=0.0))))
+        elif ka != kb:
+            parting = dict(stage=s, iteration=k,
+                           max_diff_before=max(worst, float(
+                               d.max(initial=0.0))))
         worst = max(worst, float(d.max(initial=0.0)))
-        if ka != kb:
-            return dict(stage=s, iteration=k, max_diff_before=worst)
-    return None
+    return parting, most_abs, most_rel
+
+
+def _oracle_kw(kw):
+    """A row's keywords without the port's own: the oracle has no
+    moment strategy."""
+    return {k: v for k, v in kw.items() if k != "moment_strategy"}
+
+
+def _pair_fields(card_fit, oracle_fit, card_s, oracle_s, relative=False):
+    """What every row of phase oracle_card reports: iterations per stage,
+    TC, the TC history's and W's largest differences, where the fits part,
+    whether the clusters are equal, and the two walls."""
+    import numpy as np
+
+    hc, ho = card_fit.history, oracle_fit.history
+    parts, abs_d, rel_d = _first_parting(
+        hc, ho, ORACLE_TC_REL if relative else F64_TOL, relative)
+    iters_o = list(ho["iters_per_stage"])
+    return dict(
+        iters_per_stage_card=[int(k) for k in hc["iters_per_stage"]],
+        iters_per_stage_oracle=iters_o, tc_card=card_fit.tc,
+        tc_oracle=oracle_fit.tc, tc_abs_diff=abs(card_fit.tc - oracle_fit.tc),
+        tc_history_max_abs_diff=abs_d, tc_history_max_rel_diff=rel_d,
+        w_max_abs_diff=float(np.abs(card_fit.ws.cpu().numpy()
+                                    - oracle_fit.ws).max()),
+        parts_at=parts, clusters_equal=bool(np.array_equal(
+            card_fit.clusters, oracle_fit.clusters)),
+        card_seconds=card_s, oracle_seconds=oracle_s,
+        oracle_seconds_per_iter=oracle_s / max(sum(iters_o), 1))
+
+
+def _fixed_point_held(fields):
+    """The gate of the fixed point's small rows and lanes, whose TC
+    histories part from the oracle's: the same iterations per stage and
+    clusters, and final TC and W within ORACLE_FP_TOL."""
+    return (fields["iters_per_stage_card"] == fields["iters_per_stage_oracle"]
+            and fields["clusters_equal"]
+            and max(fields["tc_abs_diff"],
+                    fields["w_max_abs_diff"]) < ORACLE_FP_TOL)
+
+
+def _scaled_diff(got, want):
+    """max |got - want| over max(1, max |want|)."""
+    import numpy as np
+
+    want = np.asarray(want, dtype=np.float64)
+    return float(np.abs(np.asarray(got, dtype=np.float64) - want).max()
+                 / max(1.0, float(np.abs(want).max())))
+
+
+def oracle_card_phase(card, device="cuda", full=(N, P, M, BLOCKS),
+                      small=ORACLE_SMALL, full_max_iter=ORACLE_MAX_ITER,
+                      small_max_iter=F64_MAX_ITER):
+    """Phase oracle_card: the card against the port's float64 oracle
+    (`linearcorex_tpu_torch.oracle`, NumPy and SciPy on the host), from the
+    same W0. `full` = (n, p, m, blocks) and `small` = (n, p, m, blocks, m
+    of the reported pair) are the shapes; `device="cpu"` runs the same
+    gates on the CPU at a small size (the kernel row then runs the chain's
+    plain twin, which launches nothing). Returns {"oracle_card_f32": chain
+    kernel launches of the kernel row}."""
+    t_phase = time.perf_counter()
+    emit("oracle_card_host", card=card, **host_cpu())
+    _oracle_full_width(card, device, full, full_max_iter)
+    launches = _oracle_small(card, device, small, small_max_iter)
+    emit("oracle_card_total", seconds=time.perf_counter() - t_phase,
+         card=card)
+    return launches
+
+
+def host_cpu():
+    """The host's CPU as /proc/cpuinfo names it (its first processor) and
+    the threads this process may run on: the oracle's seconds are the
+    host's."""
+    info = {}
+    try:
+        with open("/proc/cpuinfo") as f:
+            for ln in f:
+                if not ln.strip():
+                    break
+                key, _, value = ln.partition(":")
+                info[key.strip()] = value.strip()
+    except OSError:
+        pass
+    return dict(cpu_model=info.get("model name"), vendor=info.get("vendor_id"),
+                family=info.get("cpu family"), model=info.get("model"),
+                avx512f="avx512f" in info.get("flags", "").split(),
+                threads=len(os.sched_getaffinity(0)))
+
+
+def _oracle_full_width(card, device, shape, max_iter):
+    """The north-star width: the script's block data copied to the host as
+    float64, one W0 ~ N(0, 1/sqrt(p)) from RandomState(0), dtype='float64',
+    `max_iter` a stage (the cut). One oracle fit per optimizer. Momentum
+    on gram and on samples must be step-matched with the oracle's momentum
+    fit: the same iterations per stage, every iteration's TC within
+    ORACLE_TC_REL relative, W within F64_TOL, equal clusters, transform of
+    the n rows within F64_TOL of its largest magnitude. The fixed point is
+    reported with the iteration where it parts (its m x m system is
+    near-singular when m exceeds the planted blocks). Before the fits, the
+    oracle's seconds are projected from one timed objective evaluation per
+    optimizer; the phase fails if they pass ORACLE_HOST_BUDGET."""
+    import numpy as np
+    import torch
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.oracle import OracleCorex, anneal_schedule
+
+    n, p, m, blocks = shape
+    x = block_data(n, p, blocks, seed=DATA_SEED, dev=torch.device(device))
+    x = x.to(torch.float64).cpu().numpy()
+    w0 = np.random.RandomState(0).normal(scale=1 / np.sqrt(p), size=(m, p))
+    base = dict(n_hidden=m, max_iter=max_iter)
+    # a stage runs max_iter + 1 evaluations; a fit ends with two
+    # evaluations' worth of final moments
+    evals = len(anneal_schedule(True, m, True)) * (max_iter + 1) + 2
+    per_eval = {opt: _timed(lambda: OracleCorex(optimizer=opt, **base)
+                            ._obj_grad(w0, x, 0.0), "cpu")[1]
+                for opt in ("momentum", "fixed_point")}
+    projected = evals * sum(per_eval.values())
+    threads = len(os.sched_getaffinity(0))
+    emit("oracle_card_projection", seconds_per_evaluation=per_eval,
+         evaluations_per_fit=evals, projected_seconds=projected,
+         budget_seconds=ORACLE_HOST_BUDGET, threads=threads, card=card)
+    check(projected <= ORACLE_HOST_BUDGET,
+          f"oracle_card: the oracle's two full-width fits would take "
+          f"~{projected:.0f} s on this host ({threads} threads), past the "
+          f"{ORACLE_HOST_BUDGET:.0f} s the script's time limit leaves them; "
+          f"PERF.md section 4 names the host that limit assumes")
+    oracles = {opt: _timed(lambda: OracleCorex(optimizer=opt, **base).fit(
+        x, init_ws=w0), "cpu") for opt in ("momentum", "fixed_point")}
+    for name, opt, strategy, gated in (
+            ("momentum_gram", "momentum", "gram", True),
+            ("momentum_samples", "momentum", "samples", True),
+            ("fixed_point_gram", "fixed_point", "gram", False)):
+        model, secs = _timed(lambda: lct.Corex(
+            dtype="float64", optimizer=opt, moment_strategy=strategy,
+            device=device, **base).fit(x, init_ws=w0), device)
+        oracle, oracle_s = oracles[opt]
+        fields = _pair_fields(model, oracle, secs, oracle_s, relative=True)
+        y = model.transform(x)
+        y_o = oracle.transform(x)
+        fields.update(transform_rel_diff=float(np.abs(y - y_o).max()
+                                               / np.abs(y_o).max()))
+        matched = (fields["iters_per_stage_card"]
+                   == fields["iters_per_stage_oracle"]
+                   and fields["tc_history_max_rel_diff"] < ORACLE_TC_REL
+                   and fields["w_max_abs_diff"] < F64_TOL
+                   and fields["clusters_equal"]
+                   and fields["transform_rel_diff"] < F64_TOL)
+        emit("oracle_card", shape="full", row=name, n=n, p=p, m=m,
+             max_iter=max_iter, gate="step_matched" if gated else "reported",
+             step_matched=matched,
+             tc_bound_rel=ORACLE_TC_REL, bound=F64_TOL, card=card, **fields)
+        check(matched or not gated,
+              f"oracle_card full width '{name}': the card is not "
+              f"step-matched with the oracle ({fields})")
+        del model, y, y_o
+    del oracles, x
+
+
+def _oracle_small(card, device, shape, max_iter):
+    """The small shape (float64_card_vs_cpu's generator): every row of
+    ORACLE_ROWS in float64 on the card against OracleCorex with the same
+    keywords and W0, gated with F64_TOL on the iterations per stage, TC,
+    W, tcs, mis, clusters, transform(details=True), predict and
+    get_covariance (the fixed point's row by `_fixed_point_held`); the
+    fixed point at the pair's wider m,
+    reported; the float32 kernel row (use_pallas='always') against the
+    oracle's momentum fit, held to the same clusters and TC within
+    SMALL_TOL_REL; ORACLE_LANES float64 restart lanes, each held to the
+    oracle fit from its W0 (`_oracle_lanes`). Returns {"oracle_card_f32":
+    the kernel row's launches}."""
+    import numpy as np
+    import torch
+    import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.oracle import OracleCorex
+
+    n, p, m, blocks, wide_m = shape
+    rng = np.random.RandomState(5)
+    zs = rng.normal(size=(n, blocks))
+    xs = np.repeat(zs, p // blocks, axis=1) * 0.9 + 0.436 * rng.normal(
+        size=(n, p))
+    ws_wide = rng.normal(scale=1 / np.sqrt(p), size=(wide_m, p))
+    w0 = ws_wide[:m]
+    x_miss = xs.copy()
+    x_miss[rng.random_sample(xs.shape) < 0.01] = ORACLE_MISSING
+    base = dict(n_hidden=m, max_iter=max_iter)
+    oracles = {}
+    for name, kw in ORACLE_ROWS:
+        data = x_miss if "missing_values" in kw else xs
+        init = {} if kw.get("init") == "spectral" else dict(init_ws=w0)
+        model, secs = _timed(lambda: lct.Corex(
+            dtype="float64", device=device, **base, **kw).fit(data, **init),
+            device)
+        oracle, oracle_s = _timed(lambda: OracleCorex(
+            **base, **_oracle_kw(kw)).fit(data, **init), "cpu")
+        oracles[name] = oracle
+        fields = _pair_fields(model, oracle, secs, oracle_s)
+        y, mom = model.transform(data, details=True)
+        y_o, mom_o = oracle.transform(data, details=True)
+        diffs = dict(
+            tc=fields["tc_abs_diff"], w=fields["w_max_abs_diff"],
+            tcs=float(np.abs(model.tcs - oracle.tcs).max()),
+            mis=float(np.abs(model.mis - oracle.mis).max()),
+            transform=_scaled_diff(y, y_o),
+            details=max(_scaled_diff(mom[k], v) for k, v in mom_o.items()),
+            predict=_scaled_diff(model.predict(y), oracle.predict(y_o)),
+            covariance=_scaled_diff(model.get_covariance(),
+                                    oracle.get_covariance()))
+        matched = (sorted(mom) == sorted(mom_o)
+                   and fields["iters_per_stage_card"]
+                   == fields["iters_per_stage_oracle"]
+                   and fields["clusters_equal"]
+                   and max(diffs.values()) < F64_TOL)
+        fixed = kw.get("optimizer") == "fixed_point"
+        held = matched or fixed and _fixed_point_held(fields)
+        emit("oracle_card", shape="small", row=name, n=n, p=p, m=m,
+             gate="fixed_point" if fixed else "step_matched",
+             step_matched=matched, held=held, diffs=diffs, bound=F64_TOL,
+             fixed_point_bound=ORACLE_FP_TOL, card=card, **fields)
+        check(held, f"oracle_card small '{name}': the card is not held to "
+              f"the oracle ({diffs}, {fields})")
+
+    # the other side of the conditioning finding: the fixed point with
+    # more factors than planted blocks, reported
+    wide = dict(n_hidden=wide_m, max_iter=max_iter, optimizer="fixed_point")
+    model, secs = _timed(lambda: lct.Corex(
+        dtype="float64", moment_strategy="gram", device=device, **wide).fit(
+        xs, init_ws=ws_wide), device)
+    oracle, oracle_s = _timed(lambda: OracleCorex(**wide).fit(
+        xs, init_ws=ws_wide), "cpu")
+    emit("oracle_card", shape="small", row=f"fixed_point_gram_m{wide_m}",
+         n=n, p=p, m=wide_m, gate="reported", bound=F64_TOL, card=card,
+         **_pair_fields(model, oracle, secs, oracle_s))
+
+    # the kernel: float32 on the card through the chain kernel
+    ref = oracles["momentum_gram"]
+    model, ran, secs, _ = counted(lambda: lct.Corex(
+        dtype="float32", use_pallas="always", moment_strategy="gram",
+        device=device, **base).fit(xs, init_ws=w0), device=device)
+    rel_tc = abs(model.tc - ref.tc) / abs(ref.tc)
+    same = bool(np.array_equal(model.clusters, ref.clusters))
+    emit("oracle_card", shape="small", row="kernel_f32", n=n, p=p, m=m,
+         gate="kernel", kernel_launches=ran, tc_card=model.tc,
+         tc_oracle=ref.tc, tc_rel_diff=rel_tc, clusters_equal=same,
+         bound=SMALL_TOL_REL, card_seconds=secs, card=card)
+    check(same and rel_tc < SMALL_TOL_REL,
+          f"oracle_card kernel_f32: clusters equal {same}, TC {rel_tc:.3e} "
+          f"relative from the oracle (bound {SMALL_TOL_REL:g})")
+    check(ran > 0 or device == "cpu",
+          "oracle_card kernel_f32: the chain kernel never launched")
+
+    _oracle_lanes(card, device, xs, m, max_iter)
+    return {"oracle_card_f32": ran}
+
+
+def _oracle_lanes(card, device, xs, m, max_iter):
+    """ORACLE_LANES float64 restart lanes (`parallel.restarts.
+    fit_restarts`, gram) from `init_restarts`' stack: momentum lanes each
+    step-matched (iterations per stage, clusters, every iteration's TC,
+    final TC and W within F64_TOL) with the oracle fit from that lane's W0;
+    fixed-point lanes held by `_fixed_point_held`, with where they part
+    (see ORACLE_ROWS)."""
+    from types import SimpleNamespace
+
+    import numpy as np
+    import torch
+    from linearcorex_tpu_torch.config import CorexConfig
+    from linearcorex_tpu_torch.oracle import OracleCorex
+    from linearcorex_tpu_torch.ops import moments as Mo
+    from linearcorex_tpu_torch.ops import preprocessing as Pp
+    from linearcorex_tpu_torch.parallel import restarts as R
+
+    n, p = xs.shape
+    xt, _ = Pp.fit_preprocess(torch.as_tensor(xs, dtype=torch.float64,
+                                              device=device), "standard")
+    gram = Mo.compute_gram(xt)
+    del xt
+    w0s = R.init_restarts(ORACLE_LANES, m, p, 17, torch.float64, device)
+    for opt in ("fixed_point", "momentum"):
+        cfg = CorexConfig(n_hidden=m, dtype="float64", max_iter=max_iter,
+                          optimizer=opt)
+        (ws, mom, diag), secs = _timed(
+            lambda: R.fit_restarts(gram, w0s, cfg, "gram", n_samples=n),
+            device)
+        iters = diag.iters_per_stage.cpu().numpy()
+        hist = diag.tc_history.cpu().numpy()
+        for r in range(ORACLE_LANES):
+            oracle, oracle_s = _timed(lambda: OracleCorex(
+                n_hidden=m, max_iter=max_iter, optimizer=opt).fit(
+                xs, init_ws=w0s[r].cpu().numpy()), "cpu")
+            lane = SimpleNamespace(
+                history=dict(iters_per_stage=iters[r].tolist(),
+                             TC=np.concatenate([hist[r, s, :k] for s, k
+                                                in enumerate(iters[r])])),
+                tc=float(mom.tc[r]), ws=ws[r],
+                clusters=torch.argmax(mom.mi[r], dim=0).cpu().numpy())
+            fields = _pair_fields(lane, oracle, secs, oracle_s)
+            matched = (fields["iters_per_stage_card"]
+                       == fields["iters_per_stage_oracle"]
+                       and fields["clusters_equal"]
+                       and max(fields["tc_history_max_abs_diff"],
+                               fields["tc_abs_diff"],
+                               fields["w_max_abs_diff"]) < F64_TOL)
+            fixed = opt == "fixed_point"
+            held = matched or fixed and _fixed_point_held(fields)
+            emit("oracle_card", shape="small", row=f"lanes_{opt}", lane=r,
+                 lanes=ORACLE_LANES, n=n, p=p, m=m,
+                 gate="fixed_point" if fixed else "step_matched",
+                 step_matched=matched, held=held, bound=F64_TOL,
+                 fixed_point_bound=ORACLE_FP_TOL, card=card, **fields)
+            check(held, f"oracle_card lanes_{opt}: lane {r} is not held to "
+                  f"the oracle fit from its W0 ({fields})")
 
 
 def small_streaming(card):
@@ -2973,6 +3383,7 @@ def main():
         warnings.simplefilter("ignore")
         small_fits(card)
         float64_card_vs_cpu(card)
+        launches.update(oracle_card_phase(card))
         launches.update(small_streaming(card))
         lane_launches.update(small_restarts(card))
         lane_launches.update(selection(dev, card))

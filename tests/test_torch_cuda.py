@@ -2,7 +2,8 @@
 they skip without one), plus the CPU-side checks of the kernel wrapper.
 
 This file imports neither JAX nor tests/conftest.py, so it also runs on a
-machine without JAX:
+machine without JAX (float64 card fits are held to the port's own copy of
+the oracle, `linearcorex_tpu_torch.oracle`):
 
     python -m pytest -o addopts="" --noconftest -q tests/test_torch_cuda.py
 
@@ -21,6 +22,7 @@ import torch
 
 import linearcorex_tpu_torch as lct
 from linearcorex_tpu_torch.ops import cuda_moments as CM
+from linearcorex_tpu_torch.oracle import OracleCorex
 from linearcorex_tpu_torch.ops import moments as TM
 from linearcorex_tpu_torch.ops import preprocessing as TP
 from linearcorex_tpu_torch.utils import build
@@ -782,3 +784,48 @@ def test_stack_on_numpy_makes_no_host_round_trip_on_the_card(method,
         assert type(out) is np.ndarray
     assert seen == ["ndarray", "cuda"]
     assert reads == ([] if method == "fit" else ["cuda"])
+
+
+def _block_data(n=1000, p=64, m=8, seed=0, strength=0.9):
+    """tests/conftest.py's `block_data` (this file does not import it):
+    p variables in m equal blocks, each driven by one latent factor."""
+    rng = np.random.RandomState(seed)
+    z = rng.normal(size=(n, m))
+    k = p // m
+    x = np.empty((n, p))
+    for j in range(m):
+        for i in range(k):
+            x[:, j * k + i] = strength * z[:, j] + np.sqrt(
+                1.0 - strength ** 2) * rng.normal(size=n)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["samples", "gram"])
+@pytest.mark.parametrize("optimizer",
+                         ["momentum", "fixed_point", "gd", "auto"])
+def test_f64_card_fit_step_matched_with_oracle(strategy, optimizer):
+    """A float64 fit on the card (cuBLAS, cuSOLVER) from the same W0 as
+    the port's float64 oracle (NumPy, SciPy): the same iterations per
+    stage and clusters, TC, W, tcs and mis within 1e-8
+    (tests/test_torch_corex.py's bar on the CPU), and every iteration's TC
+    within 1e-8 relative (plain GD drifts to ~2e-9 relative on the CPU)."""
+    _need_cuda()
+    x = _block_data()
+    w0 = np.random.RandomState(42).normal(scale=1 / 8, size=(8, 64))
+    kw = dict(n_hidden=8, optimizer=optimizer)
+    if optimizer == "gd":
+        kw["max_iter"] = 300      # plain GD converges slowly; cap stages
+    c = lct.Corex(dtype="float64", moment_strategy=strategy, **kw).fit(
+        x, init_ws=w0)
+    o = OracleCorex(**kw).fit(x, init_ws=w0)
+    assert c.ws.device.type == "cuda"
+    assert c.diagnostics.iters_per_stage.tolist() == \
+        o.history["iters_per_stage"]
+    assert c.resolved_optimizer_ == o.resolved_optimizer_
+    assert abs(c.tc - o.tc) < 1e-8
+    assert np.abs(c.ws.cpu().numpy() - o.ws).max() < 1e-8
+    assert np.array_equal(c.clusters, o.clusters)
+    assert np.abs(c.tcs - o.tcs).max() < 1e-8
+    assert np.abs(c.mis - o.mis).max() < 1e-8
+    assert np.allclose(c.history["TC"], o.history["TC"], rtol=1e-8, atol=0)

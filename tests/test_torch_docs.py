@@ -1,5 +1,6 @@
 """The port's reference documents held to the code: `docs/API_torch.md`
-covers every public name of `linearcorex_tpu_torch`, every `lct.…` or
+covers every public name of `linearcorex_tpu_torch` and of its float64
+oracle (`linearcorex_tpu_torch.oracle`), every `lct.…` or
 `linearcorex_tpu_torch.…` name that the documents and the port's examples
 use resolves, and every row of `docs/SCALING_torch.md`'s communication
 table equals what `collective_counts()` records for one objective
@@ -19,6 +20,7 @@ import pytest
 import torch
 
 import linearcorex_tpu_torch as lct
+from linearcorex_tpu_torch import oracle
 from linearcorex_tpu_torch.config import CorexConfig
 from linearcorex_tpu_torch.models.corex import _make_obj_grad, resolve_config
 from linearcorex_tpu_torch.ops import moments as TM
@@ -242,7 +244,7 @@ def _section(text, cls):
     return "\n".join(lines[start + 1:end])
 
 
-@pytest.mark.parametrize("name", lct.__all__)
+@pytest.mark.parametrize("name", lct.__all__ + oracle.__all__)
 def test_api_reference_names_every_exported_name(name):
     assert _names(_code(API.read_text()), name), name
 

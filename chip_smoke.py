@@ -190,9 +190,10 @@ non-zero and does not print the final line.
              float64 fit bitwise the first, and the chain wrapper on
              bfloat16 and float16 operands bitwise the kernel on their
              float32 casts. Reported: wall, iterations per stage, TC,
-             block share, peak bytes; fit_core ms per iteration of
-             momentum (float32 and bfloat16) against the fixed point, in
-             turns; the phase's seconds.
+             block share, peak bytes; the phase's seconds. After
+             oracle_card's join, on every core (default_paths_timing):
+             fit_core ms per iteration of momentum (float32 and bfloat16)
+             against the fixed point, in turns.
 6. small     small fits on the card (n=2000, p=256, m=8) against the
              port's float64 CPU fit from the same W0 — same clusters, TC
              within 1e-3 relative: the non-overlap fit through the kernel
@@ -212,13 +213,24 @@ non-zero and does not print the final line.
              equal, TC and W within 1e-8); the fixed point is reported
              with the iteration where the pair parts (its near-singular
              m x m inverse parts two LAPACKs at this shape).
-             oracle_card: the card against the port's float64 oracle
-             (linearcorex_tpu_torch.oracle, NumPy and SciPy on the host)
-             from the same W0. At n = p = 10,000, m = 512 (the block data
-             copied to the host as float64, max_iter=ORACLE_MAX_ITER a
-             stage, the only cut; the phase fails first if one timed
-             oracle evaluation projects the two oracle fits past
-             ORACLE_HOST_BUDGET seconds): momentum on gram and on samples
+             oracle_card (run after scaling_example; its oracle fits
+             start right after phase env): the card against the port's
+             float64 oracle (linearcorex_tpu_torch.oracle, NumPy and SciPy
+             on the host) from the same W0. The oracle's fits run in one
+             child process on the host (OracleChild, oracle_child),
+             started as soon as the block data exists, on all but two of
+             the host's cores (this process keeps those two until the
+             join); the inputs reach it as .npy/.npz files in a temporary
+             directory and each fit comes back as an .npz. The child first
+             times one objective evaluation per optimizer, and the script
+             fails if the projected full-width fits pass the time left
+             before the child's deadline (SCRIPT_SECONDS less
+             AFTER_JOIN_SECONDS after the script started); a child that
+             exits non-zero or runs past that deadline fails the phase by
+             name. The phase runs the card's fits, joins the child, then
+             compares. At n = p = 10,000, m = 512 (the block data copied
+             to the host as float64, max_iter=ORACLE_MAX_ITER a stage, the
+             only cut): momentum on gram and on samples
              against one oracle momentum fit, each step-matched (the same
              iterations per stage, every iteration's TC within 1e-8
              relative, W within 1e-8, equal clusters, transform of the
@@ -243,7 +255,8 @@ non-zero and does not print the final line.
              each step-matched with the oracle fit from its W0 and
              fixed-point lanes held as the fixed point's row. Every row
              reports both walls.
-   selection pick_n_hidden on block data with n=2000, p=1024 and 4
+   selection (after oracle_card's join, as warmup, on every core)
+             pick_n_hidden on block data with n=2000, p=1024 and 4
              planted blocks of 256 (max_n_hidden=8, repeat=4,
              max_iter=2000), padded and sequential, criterion 'tc' and
              'heldout': each runs the lane kernel, and padded and
@@ -306,12 +319,18 @@ non-zero and does not print the final line.
              within 5% of this script's own CUDA-event figure for it; a
              utils.profiling.trace of three iterations holds a kernel of
              ns_chain.cu by name.
+9. card_tests  tests/test_torch_cuda.py in a fresh process (`python3 -m
+             pytest -o addopts="" --noconftest -p no:cacheprovider -q
+             --junitxml=...`), on the build directory phase build filled:
+             exit 0, every collected case passed and none skipped (a skip
+             on the card means a test found no card), nothing built again.
 
 Before the last line it prints the kernels' summary line and the card's
 `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
+import atexit
 import json
 import os
 import shutil
@@ -320,6 +339,7 @@ import sys
 import tempfile
 import time
 
+STARTED = time.perf_counter()   # the script's start: the oracle child's deadline
 TOL_REL = 1e-5          # kernel vs twin, relative to the largest magnitude
 N, P, M, BLOCKS = 10_000, 10_000, 512, 100
 FIT_MAX_ITER, FIT_TOL = 1000, 1e-4
@@ -347,6 +367,8 @@ WARMUP_ROWS = 4096      # rows of a serving batch in phase warmup
 WARMUP_SWEEP_MAX_ITER = 200
 WARMUP_CHILD_TIMEOUT = 600
 SCALING_TIMEOUT = 600   # seconds for phase scaling_example's process
+CARD_TESTS = os.path.join("tests", "test_torch_cuda.py")
+CARD_TESTS_TIMEOUT = 600  # seconds for phase card_tests' pytest process
 EXPORT_TOL = 1e-5       # the example's blocked export against the dense one
 WIDE_N = 2000           # rows of phase default_paths' n < p rows
 DEFAULT_MAX_ITER = 300  # per stage, for phase default_paths (a cut depth)
@@ -357,10 +379,19 @@ F64_GATED = ("momentum_gram", "momentum_samples", "overlap_gram")
 # gives why: the oracle's seconds per iteration on the card machine's host)
 ORACLE_MAX_ITER = 8
 ORACLE_TC_REL = 1e-8    # full width: every iteration's TC, relative
-# the most seconds the two full-width oracle fits may be projected to take
-# on the host (the projection runs short of the fits' wall): the rest of
-# the script's 1200 s is the other phases' (PERF.md section 4)
-ORACLE_HOST_BUDGET = 300.0
+# the oracle's fits run in a child process on the host beside the card's
+# phases (OracleChild); this process keeps ORACLE_MAIN_CORES of the host's
+# cores until it joins the child, and the child gets the rest
+ORACLE_MAIN_CORES = 2
+# the limit on the whole script, and the seconds the phases after the
+# join take at most (oracle_card's comparisons, default_paths_timing,
+# selection, warmup, timing, profile, profiling, card_tests: ~420 s on the
+# card machine, PERF.md section 4). The child must be done SCRIPT_SECONDS
+# - AFTER_JOIN_SECONDS after the script started, and its projection must
+# fit in the time left to then
+SCRIPT_SECONDS = 1200.0
+AFTER_JOIN_SECONDS = 480.0
+ORACLE_PROJECTION_TIMEOUT = 300.0   # seconds to wait for the projection
 # the fixed point's small rows and lanes: final TC and W (PERF.md section 4)
 ORACLE_FP_TOL = 1e-6
 ORACLE_SMALL = (2000, 1024, 8, 8, 32)   # n, p, m, blocks, the m of a pair
@@ -1537,15 +1568,17 @@ def check_north_star(name, model, launches, x, tc_f32,
 
 def _timed(fn, device="cuda"):
     """(fn(), wall seconds), the card synchronized before and after (not
-    with device="cpu", a CPU rehearsal or a host-only fn)."""
-    import torch
+    with device="cpu", a CPU rehearsal or a host-only fn, which imports no
+    torch)."""
+    def sync():
+        if device == "cuda":
+            import torch
+            torch.cuda.synchronize()
 
-    if device == "cuda":
-        torch.cuda.synchronize()
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    if device == "cuda":
-        torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
 
 
@@ -2084,7 +2117,6 @@ def default_paths_phase(x, card):
         emit("default_paths", path=name, card=card, **fields)
         del model
         torch.cuda.empty_cache()
-    emit("default_paths_timing", card=card, **default_paths_timing(x))
     emit("default_paths_total", seconds=time.perf_counter() - t_phase,
          card=card)
     return launches
@@ -2094,7 +2126,9 @@ def default_paths_timing(x):
     """ms per fit_core iteration at the north-star shape (gram, the chain
     kernel, anneal=False, tol=0, TIMED_ITERS iterations; CUDA events, an
     untimed warm-up, the variants in turns): the fixed point against the
-    default momentum, in float32, and momentum in dtype='bfloat16'."""
+    default momentum, in float32, and momentum in dtype='bfloat16'. Phase
+    default_paths_timing, after oracle_card's join: beside the oracle
+    child these times moved (PERF.md section 4)."""
     import numpy as np
     import torch
     from linearcorex_tpu_torch.ops import moments as Mo
@@ -2273,20 +2307,37 @@ def _scaled_diff(got, want):
 
 def oracle_card_phase(card, device="cuda", full=(N, P, M, BLOCKS),
                       small=ORACLE_SMALL, full_max_iter=ORACLE_MAX_ITER,
-                      small_max_iter=F64_MAX_ITER):
+                      small_max_iter=F64_MAX_ITER, child=None):
     """Phase oracle_card: the card against the port's float64 oracle
     (`linearcorex_tpu_torch.oracle`, NumPy and SciPy on the host), from the
-    same W0. `full` = (n, p, m, blocks) and `small` = (n, p, m, blocks, m
-    of the reported pair) are the shapes; `device="cpu"` runs the same
-    gates on the CPU at a small size (the kernel row then runs the chain's
-    plain twin, which launches nothing). Returns {"oracle_card_f32": chain
-    kernel launches of the kernel row}."""
+    same W0. The oracle's fits run in `child`, an `OracleChild` the caller
+    started earlier, which carries the shapes and depths; with none, the
+    phase starts one itself from `full` = (n, p, m, blocks), `small` = (n,
+    p, m, blocks, m of the reported pair) and the two max_iters, and checks
+    its projection. The card's fits run first, then the phase joins the
+    child and compares. `device="cpu"` runs the same gates on the CPU at a
+    small size (the kernel row then runs the chain's plain twin, which
+    launches nothing). Returns {"oracle_card_f32": chain kernel launches
+    of the kernel row}."""
     t_phase = time.perf_counter()
-    emit("oracle_card_host", card=card, **host_cpu())
-    _oracle_full_width(card, device, full, full_max_iter)
-    launches = _oracle_small(card, device, small, small_max_iter)
+    try:
+        if child is None:
+            child = OracleChild(card, device, full, small, full_max_iter,
+                                small_max_iter)
+            child.projection()
+        compares = [_oracle_full_width(child), _oracle_small(child),
+                    _oracle_lanes(child)]
+        oracles = child.join()
+        launches = {}
+        for compare in compares:
+            launches.update(compare(oracles))
+    finally:
+        child.close()
     emit("oracle_card_total", seconds=time.perf_counter() - t_phase,
-         card=card)
+         child_seconds=child.done["seconds"], child_threads=len(child.cores),
+         child_marks=child.done["marks"],
+         child_started_s=child.started - STARTED,
+         join_wait_seconds=child.waited, card=card)
     return launches
 
 
@@ -2310,7 +2361,322 @@ def host_cpu():
                 threads=len(os.sched_getaffinity(0)))
 
 
-def _oracle_full_width(card, device, shape, max_iter):
+def _pin(cores):
+    """Set the CPU affinity of every thread of this process
+    (os.sched_setaffinity(0, ...) sets the calling thread's alone)."""
+    for tid in os.listdir("/proc/self/task"):
+        try:
+            os.sched_setaffinity(int(tid), cores)
+        except OSError:         # a thread that ended meanwhile
+            pass
+
+
+def _oracle_small_data(small):
+    """The small shape's inputs (float64_card_vs_cpu's generator): the
+    data, its copy with ~1% of the entries missing, and the W0 of the
+    pair's wider m, whose first m rows are the other rows' W0."""
+    import numpy as np
+
+    n, p, m, blocks, wide_m = small
+    rng = np.random.RandomState(5)
+    zs = rng.normal(size=(n, blocks))
+    xs = np.repeat(zs, p // blocks, axis=1) * 0.9 + 0.436 * rng.normal(
+        size=(n, p))
+    ws_wide = rng.normal(scale=1 / np.sqrt(p), size=(wide_m, p))
+    x_miss = xs.copy()
+    x_miss[rng.random_sample(xs.shape) < 0.01] = ORACLE_MISSING
+    return xs, x_miss, ws_wide
+
+
+class OracleChild:
+    """Phase oracle_card's oracle fits, in one child process on the host
+    (`oracle_child`) that runs beside the card's phases: started as soon
+    as the block data exists, joined by `oracle_card_phase` just before
+    its comparisons. The inputs reach the child through a temporary
+    directory: the block data `x` (drawn here when None) as a float64
+    .npy, the W0s and the small shape's data as one .npz; each oracle fit
+    comes back as one .npz (`_oracle_save`). The child runs on all but
+    ORACLE_MAIN_CORES of this process's cores (or on `cores`), by its
+    affinity and OMP/OPENBLAS/MKL_NUM_THREADS; this process runs on the
+    rest, with as many torch threads, until the join. The child must have
+    ended by `deadline` (a time.perf_counter() reading; by default
+    SCRIPT_SECONDS less AFTER_JOIN_SECONDS after it starts)."""
+
+    def __init__(self, card, device="cuda", full=(N, P, M, BLOCKS),
+                 small=ORACLE_SMALL, full_max_iter=ORACLE_MAX_ITER,
+                 small_max_iter=F64_MAX_ITER, x=None, deadline=None,
+                 cores=None):
+        import numpy as np
+        import torch
+        from linearcorex_tpu_torch.parallel.restarts import init_restarts
+
+        self.card, self.device, self.full, self.small = card, device, full, small
+        self.full_max_iter, self.small_max_iter = full_max_iter, small_max_iter
+        self.started = time.perf_counter()
+        self.deadline = (self.started + SCRIPT_SECONDS - AFTER_JOIN_SECONDS
+                         if deadline is None else deadline)
+        self.proc, self.pinned, self.done, self.waited = None, None, None, 0.0
+        self.dir = tempfile.mkdtemp(prefix="chip_smoke_oracle_")
+        atexit.register(self.close)
+        host = sorted(os.sched_getaffinity(0))
+        self.cores = (sorted(cores) if cores is not None
+                      else host[ORACLE_MAIN_CORES:] or host)
+        mine = [c for c in host if c not in self.cores] or host
+        emit("oracle_card_host", card=card, **host_cpu(),
+             child_threads=len(self.cores), main_threads=len(mine))
+
+        n, p, m, blocks = full
+        if x is None:
+            x = block_data(n, p, blocks, seed=DATA_SEED,
+                           dev=torch.device(device))
+        np.save(self.path("x.npy"), x.to(torch.float64).cpu().numpy())
+        xs, x_miss, ws_wide = _oracle_small_data(small)
+        self.inputs = dict(
+            w0=np.random.RandomState(0).normal(scale=1 / np.sqrt(p),
+                                               size=(m, p)),
+            xs=xs, x_miss=x_miss, ws_wide=ws_wide,
+            w0s=init_restarts(ORACLE_LANES, small[2], small[1], 17,
+                              torch.float64, "cpu").numpy())
+        np.savez(self.path("inputs.npz"), **self.inputs)
+        with open(self.path("spec.json"), "w") as f:
+            json.dump(dict(full=full, small=small, full_max_iter=full_max_iter,
+                           small_max_iter=small_max_iter, cores=self.cores), f)
+        threads = str(len(self.cores))
+        env = dict(os.environ, OMP_NUM_THREADS=threads,
+                   OPENBLAS_NUM_THREADS=threads, MKL_NUM_THREADS=threads)
+        with open(self.path("child.log"), "w") as log:
+            self.proc = subprocess.Popen(
+                [sys.executable, "-u", "-c",
+                 f"import chip_smoke as C; C.oracle_child({self.dir!r})"],
+                cwd=os.path.dirname(os.path.abspath(__file__)), env=env,
+                stdout=log, stderr=subprocess.STDOUT)
+        self.pinned = (host, torch.get_num_threads())
+        _pin(mine)
+        torch.set_num_threads(len(mine))
+
+    def path(self, name):
+        return os.path.join(self.dir, name)
+
+    def log(self):
+        with open(self.path("child.log")) as f:
+            return f.read()[-5000:]
+
+    def projection(self):
+        """Wait for the child's projection of its two full-width fits (one
+        timed objective evaluation per optimizer) and fail, naming the
+        child's threads, when it passes the seconds left before the
+        child's deadline."""
+        path = self.path("projection.json")
+        t0 = time.perf_counter()
+        while not os.path.exists(path):
+            check(self.proc.poll() is None, f"oracle_card: the oracle child "
+                  f"exited with {self.proc.returncode} before its "
+                  f"projection:\n{self.log()}")
+            check(time.perf_counter() - t0 < ORACLE_PROJECTION_TIMEOUT,
+                  f"oracle_card: the oracle child wrote no projection within "
+                  f"{ORACLE_PROJECTION_TIMEOUT:.0f} s:\n{self.log()}")
+            time.sleep(0.1)
+        with open(path) as f:
+            proj = json.load(f)
+        left = self.deadline - time.perf_counter()
+        emit("oracle_card_projection", **proj, seconds_left=left,
+             card=self.card)
+        check(proj["projected_seconds"] <= left,
+              f"oracle_card: the oracle's two full-width fits would take "
+              f"~{proj['projected_seconds']:.0f} s on this host "
+              f"({proj['threads']} threads), past the {left:.0f} s left "
+              f"before the oracle child's deadline; PERF.md section 4 names "
+              f"the hosts seen")
+
+    def join(self):
+        """Wait for the child until its deadline, give this process its
+        cores back, and fail by name if the child was still running then
+        (it is stopped) or exited non-zero. Returns {fit name: its record}
+        (`_oracle_record`)."""
+        import numpy as np
+
+        t0 = time.perf_counter()
+        try:
+            code = self.proc.wait(timeout=max(self.deadline - t0, 0.0))
+        except subprocess.TimeoutExpired:
+            code = None
+        finally:
+            self.close(keep_dir=True)
+        self.waited = time.perf_counter() - t0
+        check(code is not None, f"oracle_card: the oracle child was still "
+              f"running at its deadline, {self.deadline - self.started:.0f} "
+              f"s after it started; stopped it:\n{self.log()}")
+        check(code == 0, f"oracle_card: the oracle child exited with "
+              f"{code}:\n{self.log()}")
+        with open(self.path("done.json")) as f:
+            self.done = json.load(f)
+        return {name[4:-4]: _oracle_record(np.load(self.path(name)))
+                for name in os.listdir(self.dir) if name.startswith("fit_")}
+
+    def close(self, keep_dir=False):
+        """Stop the child if it still runs, give this process its cores
+        and torch threads back, and (unless `keep_dir`) remove the
+        directory. Runs at exit too, so no path leaves the child behind."""
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        if self.pinned is not None:
+            import torch
+
+            host, threads = self.pinned
+            _pin(host)
+            torch.set_num_threads(threads)
+            self.pinned = None
+        if not keep_dir:
+            shutil.rmtree(self.dir, ignore_errors=True)
+
+
+def _exit_with_parent():
+    """End this process when the process that started it has ended (a
+    daemon thread watching the parent's pid)."""
+    import threading
+
+    parent = os.getppid()
+
+    def watch():
+        while os.getppid() == parent:
+            time.sleep(1.0)
+        os._exit(1)
+
+    threading.Thread(target=watch, daemon=True).start()
+
+
+def _write_json(path, obj):
+    """Write `obj` to `path` whole or not at all (a reader polls for it)."""
+    with open(path + ".part", "w") as f:
+        json.dump(obj, f)
+    os.replace(path + ".part", path)
+
+
+def _oracle_save(tmp, name, fit, seconds, **extra):
+    """One oracle fit as `fit_<name>.npz` in `tmp`: its TC history,
+    iterations per stage, W, clusters, TC, seconds and the `extra`
+    arrays."""
+    import numpy as np
+
+    np.savez(os.path.join(tmp, f"fit_{name}.npz"),
+             TC=np.asarray(fit.history["TC"], dtype=np.float64),
+             iters_per_stage=np.asarray(fit.history["iters_per_stage"]),
+             ws=fit.ws, clusters=fit.clusters, tc=fit.tc, seconds=seconds,
+             **extra)
+
+
+def _oracle_record(saved):
+    """An oracle fit as `_oracle_save` wrote it, with the attributes the
+    phase reads of an OracleCorex (history, tc, ws, clusters; tcs, mis,
+    and the outputs `y`, `predict`, `covariance` where written), its
+    `details` (transform(details=True)'s moments) and its seconds."""
+    from types import SimpleNamespace
+
+    rec = {k: saved[k] for k in saved.files}
+    details = {k[len("details_"):]: rec.pop(k) for k in list(rec)
+               if k.startswith("details_")}
+    return SimpleNamespace(
+        history=dict(TC=rec.pop("TC"), iters_per_stage=[
+            int(k) for k in rec.pop("iters_per_stage")]),
+        tc=float(rec.pop("tc")), seconds=float(rec.pop("seconds")),
+        details=details, **rec)
+
+
+def oracle_child(tmp):
+    """The child process of phase oracle_card, started by `OracleChild`
+    as `python3 -u -c "import chip_smoke as C; C.oracle_child(dir)"` with
+    the thread counts in its environment: on the cores its spec names, it
+    times one objective evaluation per optimizer at full width and writes
+    the projection of the two full-width fits (each 7 stages of max_iter +
+    1 evaluations, and the final moments), then runs every oracle fit of
+    the phase, each written as it ends (`_oracle_save`), and last
+    done.json with its seconds and the seconds since its start at which
+    each step ended. It imports no torch (`_oracle_module`), and ends when
+    the process that started it ends."""
+    t0 = time.perf_counter()
+    marks = {}
+
+    def mark(what):
+        marks[what] = time.perf_counter() - t0
+
+    with open(os.path.join(tmp, "spec.json")) as f:
+        spec = json.load(f)
+    os.sched_setaffinity(0, spec["cores"])
+    _exit_with_parent()
+    import numpy as np
+    oracle = _oracle_module()
+    OracleCorex, anneal_schedule = oracle.OracleCorex, oracle.anneal_schedule
+    mark("imported")
+
+    inputs = np.load(os.path.join(tmp, "inputs.npz"))
+    x = np.load(os.path.join(tmp, "x.npy"))
+    threads = len(spec["cores"])
+    mark("loaded")
+    w0, m = inputs["w0"], spec["full"][2]
+    base = dict(n_hidden=m, max_iter=spec["full_max_iter"])
+    evals = len(anneal_schedule(True, m, True)) * (base["max_iter"] + 1) + 2
+    per_eval = {opt: _timed(lambda: OracleCorex(optimizer=opt, **base)
+                            ._obj_grad(w0, x, 0.0), "cpu")[1]
+                for opt in ("momentum", "fixed_point")}
+    _write_json(os.path.join(tmp, "projection.json"), dict(
+        seconds_per_evaluation=per_eval, evaluations_per_fit=evals,
+        projected_seconds=evals * sum(per_eval.values()), threads=threads))
+    mark("projected")
+    for opt in ("momentum", "fixed_point"):
+        fit, secs = _timed(lambda: OracleCorex(optimizer=opt, **base).fit(
+            x, init_ws=w0), "cpu")
+        _oracle_save(tmp, f"full_{opt}", fit, secs, y=fit.transform(x))
+        mark(f"full_{opt}")
+    del x
+
+    xs, x_miss, ws_wide = (inputs[k] for k in ("xs", "x_miss", "ws_wide"))
+    m, wide_m, max_iter = spec["small"][2], spec["small"][4], \
+        spec["small_max_iter"]
+    base = dict(n_hidden=m, max_iter=max_iter)
+    for name, kw in ORACLE_ROWS:
+        data = x_miss if "missing_values" in kw else xs
+        init = {} if kw.get("init") == "spectral" else dict(
+            init_ws=ws_wide[:m])
+        fit, secs = _timed(lambda: OracleCorex(**base, **_oracle_kw(kw)).fit(
+            data, **init), "cpu")
+        y, mom = fit.transform(data, details=True)
+        _oracle_save(tmp, f"small_{name}", fit, secs, y=y,
+                     predict=fit.predict(y), covariance=fit.get_covariance(),
+                     tcs=fit.tcs, mis=fit.mis,
+                     **{f"details_{k}": v for k, v in mom.items()})
+    fit, secs = _timed(lambda: OracleCorex(
+        n_hidden=wide_m, max_iter=max_iter, optimizer="fixed_point").fit(
+        xs, init_ws=ws_wide), "cpu")
+    _oracle_save(tmp, f"small_fixed_point_gram_m{wide_m}", fit, secs)
+    for opt in ("fixed_point", "momentum"):
+        for r, w0_r in enumerate(inputs["w0s"]):
+            fit, secs = _timed(lambda: OracleCorex(
+                n_hidden=m, max_iter=max_iter, optimizer=opt).fit(
+                xs, init_ws=w0_r), "cpu")
+            _oracle_save(tmp, f"lanes_{opt}_{r}", fit, secs)
+    mark("small")
+    _write_json(os.path.join(tmp, "done.json"), dict(
+        seconds=time.perf_counter() - t0, threads=threads, marks=marks))
+
+
+def _oracle_module():
+    """linearcorex_tpu_torch/oracle/oracle.py, loaded by its path: it
+    imports NumPy and SciPy only, and so the oracle child imports no
+    torch (seconds of its start on the card machine)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "linearcorex_tpu_torch", "oracle", "oracle.py")
+    spec = importlib.util.spec_from_file_location("oracle_child_oracle",
+                                                  path)
+    module = importlib.util.module_from_spec(spec)
+    sys.modules[spec.name] = module
+    spec.loader.exec_module(module)
+    return module
+
+
+def _oracle_full_width(child):
     """The north-star width: the script's block data copied to the host as
     float64, one W0 ~ N(0, 1/sqrt(p)) from RandomState(0), dtype='float64',
     `max_iter` a stage (the cut). One oracle fit per optimizer. Momentum
@@ -2319,220 +2685,208 @@ def _oracle_full_width(card, device, shape, max_iter):
     ORACLE_TC_REL relative, W within F64_TOL, equal clusters, transform of
     the n rows within F64_TOL of its largest magnitude. The fixed point is
     reported with the iteration where it parts (its m x m system is
-    near-singular when m exceeds the planted blocks). Before the fits, the
-    oracle's seconds are projected from one timed objective evaluation per
-    optimizer; the phase fails if they pass ORACLE_HOST_BUDGET."""
+    near-singular when m exceeds the planted blocks). Runs the card's fits
+    and returns the comparisons, a function of the child's records."""
     import numpy as np
-    import torch
     import linearcorex_tpu_torch as lct
-    from linearcorex_tpu_torch.oracle import OracleCorex, anneal_schedule
 
-    n, p, m, blocks = shape
-    x = block_data(n, p, blocks, seed=DATA_SEED, dev=torch.device(device))
-    x = x.to(torch.float64).cpu().numpy()
-    w0 = np.random.RandomState(0).normal(scale=1 / np.sqrt(p), size=(m, p))
-    base = dict(n_hidden=m, max_iter=max_iter)
-    # a stage runs max_iter + 1 evaluations; a fit ends with two
-    # evaluations' worth of final moments
-    evals = len(anneal_schedule(True, m, True)) * (max_iter + 1) + 2
-    per_eval = {opt: _timed(lambda: OracleCorex(optimizer=opt, **base)
-                            ._obj_grad(w0, x, 0.0), "cpu")[1]
-                for opt in ("momentum", "fixed_point")}
-    projected = evals * sum(per_eval.values())
-    threads = len(os.sched_getaffinity(0))
-    emit("oracle_card_projection", seconds_per_evaluation=per_eval,
-         evaluations_per_fit=evals, projected_seconds=projected,
-         budget_seconds=ORACLE_HOST_BUDGET, threads=threads, card=card)
-    check(projected <= ORACLE_HOST_BUDGET,
-          f"oracle_card: the oracle's two full-width fits would take "
-          f"~{projected:.0f} s on this host ({threads} threads), past the "
-          f"{ORACLE_HOST_BUDGET:.0f} s the script's time limit leaves them; "
-          f"PERF.md section 4 names the host that limit assumes")
-    oracles = {opt: _timed(lambda: OracleCorex(optimizer=opt, **base).fit(
-        x, init_ws=w0), "cpu") for opt in ("momentum", "fixed_point")}
+    n, p, m, _ = child.full
+    x = np.load(child.path("x.npy"))
+    base = dict(n_hidden=m, max_iter=child.full_max_iter)
+    fits = []
     for name, opt, strategy, gated in (
             ("momentum_gram", "momentum", "gram", True),
             ("momentum_samples", "momentum", "samples", True),
             ("fixed_point_gram", "fixed_point", "gram", False)):
         model, secs = _timed(lambda: lct.Corex(
             dtype="float64", optimizer=opt, moment_strategy=strategy,
-            device=device, **base).fit(x, init_ws=w0), device)
-        oracle, oracle_s = oracles[opt]
-        fields = _pair_fields(model, oracle, secs, oracle_s, relative=True)
-        y = model.transform(x)
-        y_o = oracle.transform(x)
-        fields.update(transform_rel_diff=float(np.abs(y - y_o).max()
-                                               / np.abs(y_o).max()))
-        matched = (fields["iters_per_stage_card"]
-                   == fields["iters_per_stage_oracle"]
-                   and fields["tc_history_max_rel_diff"] < ORACLE_TC_REL
-                   and fields["w_max_abs_diff"] < F64_TOL
-                   and fields["clusters_equal"]
-                   and fields["transform_rel_diff"] < F64_TOL)
-        emit("oracle_card", shape="full", row=name, n=n, p=p, m=m,
-             max_iter=max_iter, gate="step_matched" if gated else "reported",
-             step_matched=matched,
-             tc_bound_rel=ORACLE_TC_REL, bound=F64_TOL, card=card, **fields)
-        check(matched or not gated,
-              f"oracle_card full width '{name}': the card is not "
-              f"step-matched with the oracle ({fields})")
-        del model, y, y_o
-    del oracles, x
+            device=child.device, **base).fit(x, init_ws=child.inputs["w0"]),
+            child.device)
+        fits.append((name, opt, gated, model, secs, model.transform(x)))
+    del x
+
+    def compare(oracles):
+        for name, opt, gated, model, secs, y in fits:
+            oracle = oracles[f"full_{opt}"]
+            fields = _pair_fields(model, oracle, secs, oracle.seconds,
+                                  relative=True)
+            fields.update(transform_rel_diff=float(
+                np.abs(y - oracle.y).max() / np.abs(oracle.y).max()))
+            matched = (fields["iters_per_stage_card"]
+                       == fields["iters_per_stage_oracle"]
+                       and fields["tc_history_max_rel_diff"] < ORACLE_TC_REL
+                       and fields["w_max_abs_diff"] < F64_TOL
+                       and fields["clusters_equal"]
+                       and fields["transform_rel_diff"] < F64_TOL)
+            emit("oracle_card", shape="full", row=name, n=n, p=p, m=m,
+                 max_iter=child.full_max_iter,
+                 gate="step_matched" if gated else "reported",
+                 step_matched=matched, tc_bound_rel=ORACLE_TC_REL,
+                 bound=F64_TOL, card=child.card, **fields)
+            check(matched or not gated,
+                  f"oracle_card full width '{name}': the card is not "
+                  f"step-matched with the oracle ({fields})")
+        return {}
+    return compare
 
 
-def _oracle_small(card, device, shape, max_iter):
+def _oracle_small(child):
     """The small shape (float64_card_vs_cpu's generator): every row of
     ORACLE_ROWS in float64 on the card against OracleCorex with the same
     keywords and W0, gated with F64_TOL on the iterations per stage, TC,
     W, tcs, mis, clusters, transform(details=True), predict and
     get_covariance (the fixed point's row by `_fixed_point_held`); the
-    fixed point at the pair's wider m,
-    reported; the float32 kernel row (use_pallas='always') against the
-    oracle's momentum fit, held to the same clusters and TC within
-    SMALL_TOL_REL; ORACLE_LANES float64 restart lanes, each held to the
-    oracle fit from its W0 (`_oracle_lanes`). Returns {"oracle_card_f32":
-    the kernel row's launches}."""
+    fixed point at the pair's wider m, reported; the float32 kernel row
+    (use_pallas='always') against the oracle's momentum fit, held to the
+    same clusters and TC within SMALL_TOL_REL. Runs the card's fits and
+    returns the comparisons, a function of the child's records that gives
+    {"oracle_card_f32": the kernel row's launches}."""
     import numpy as np
-    import torch
     import linearcorex_tpu_torch as lct
-    from linearcorex_tpu_torch.oracle import OracleCorex
 
-    n, p, m, blocks, wide_m = shape
-    rng = np.random.RandomState(5)
-    zs = rng.normal(size=(n, blocks))
-    xs = np.repeat(zs, p // blocks, axis=1) * 0.9 + 0.436 * rng.normal(
-        size=(n, p))
-    ws_wide = rng.normal(scale=1 / np.sqrt(p), size=(wide_m, p))
+    n, p, m, _, wide_m = child.small
+    device, card = child.device, child.card
+    xs, x_miss, ws_wide = (child.inputs[k] for k in ("xs", "x_miss",
+                                                      "ws_wide"))
     w0 = ws_wide[:m]
-    x_miss = xs.copy()
-    x_miss[rng.random_sample(xs.shape) < 0.01] = ORACLE_MISSING
-    base = dict(n_hidden=m, max_iter=max_iter)
-    oracles = {}
+    base = dict(n_hidden=m, max_iter=child.small_max_iter)
+    rows = []
     for name, kw in ORACLE_ROWS:
         data = x_miss if "missing_values" in kw else xs
         init = {} if kw.get("init") == "spectral" else dict(init_ws=w0)
         model, secs = _timed(lambda: lct.Corex(
             dtype="float64", device=device, **base, **kw).fit(data, **init),
             device)
-        oracle, oracle_s = _timed(lambda: OracleCorex(
-            **base, **_oracle_kw(kw)).fit(data, **init), "cpu")
-        oracles[name] = oracle
-        fields = _pair_fields(model, oracle, secs, oracle_s)
         y, mom = model.transform(data, details=True)
-        y_o, mom_o = oracle.transform(data, details=True)
-        diffs = dict(
-            tc=fields["tc_abs_diff"], w=fields["w_max_abs_diff"],
-            tcs=float(np.abs(model.tcs - oracle.tcs).max()),
-            mis=float(np.abs(model.mis - oracle.mis).max()),
-            transform=_scaled_diff(y, y_o),
-            details=max(_scaled_diff(mom[k], v) for k, v in mom_o.items()),
-            predict=_scaled_diff(model.predict(y), oracle.predict(y_o)),
-            covariance=_scaled_diff(model.get_covariance(),
-                                    oracle.get_covariance()))
-        matched = (sorted(mom) == sorted(mom_o)
-                   and fields["iters_per_stage_card"]
-                   == fields["iters_per_stage_oracle"]
-                   and fields["clusters_equal"]
-                   and max(diffs.values()) < F64_TOL)
-        fixed = kw.get("optimizer") == "fixed_point"
-        held = matched or fixed and _fixed_point_held(fields)
-        emit("oracle_card", shape="small", row=name, n=n, p=p, m=m,
-             gate="fixed_point" if fixed else "step_matched",
-             step_matched=matched, held=held, diffs=diffs, bound=F64_TOL,
-             fixed_point_bound=ORACLE_FP_TOL, card=card, **fields)
-        check(held, f"oracle_card small '{name}': the card is not held to "
-              f"the oracle ({diffs}, {fields})")
-
-    # the other side of the conditioning finding: the fixed point with
-    # more factors than planted blocks, reported
-    wide = dict(n_hidden=wide_m, max_iter=max_iter, optimizer="fixed_point")
-    model, secs = _timed(lambda: lct.Corex(
+        rows.append((name, kw, model, secs, y, mom, model.predict(y),
+                     model.get_covariance()))
+    wide = dict(n_hidden=wide_m, max_iter=child.small_max_iter,
+                optimizer="fixed_point")
+    wide_model, wide_s = _timed(lambda: lct.Corex(
         dtype="float64", moment_strategy="gram", device=device, **wide).fit(
         xs, init_ws=ws_wide), device)
-    oracle, oracle_s = _timed(lambda: OracleCorex(**wide).fit(
-        xs, init_ws=ws_wide), "cpu")
-    emit("oracle_card", shape="small", row=f"fixed_point_gram_m{wide_m}",
-         n=n, p=p, m=wide_m, gate="reported", bound=F64_TOL, card=card,
-         **_pair_fields(model, oracle, secs, oracle_s))
-
-    # the kernel: float32 on the card through the chain kernel
-    ref = oracles["momentum_gram"]
-    model, ran, secs, _ = counted(lambda: lct.Corex(
+    kernel, ran, kernel_s, _ = counted(lambda: lct.Corex(
         dtype="float32", use_pallas="always", moment_strategy="gram",
         device=device, **base).fit(xs, init_ws=w0), device=device)
-    rel_tc = abs(model.tc - ref.tc) / abs(ref.tc)
-    same = bool(np.array_equal(model.clusters, ref.clusters))
-    emit("oracle_card", shape="small", row="kernel_f32", n=n, p=p, m=m,
-         gate="kernel", kernel_launches=ran, tc_card=model.tc,
-         tc_oracle=ref.tc, tc_rel_diff=rel_tc, clusters_equal=same,
-         bound=SMALL_TOL_REL, card_seconds=secs, card=card)
-    check(same and rel_tc < SMALL_TOL_REL,
-          f"oracle_card kernel_f32: clusters equal {same}, TC {rel_tc:.3e} "
-          f"relative from the oracle (bound {SMALL_TOL_REL:g})")
-    check(ran > 0 or device == "cpu",
-          "oracle_card kernel_f32: the chain kernel never launched")
 
-    _oracle_lanes(card, device, xs, m, max_iter)
-    return {"oracle_card_f32": ran}
+    def compare(oracles):
+        for name, kw, model, secs, y, mom, pred, cov in rows:
+            oracle = oracles[f"small_{name}"]
+            fields = _pair_fields(model, oracle, secs, oracle.seconds)
+            diffs = dict(
+                tc=fields["tc_abs_diff"], w=fields["w_max_abs_diff"],
+                tcs=float(np.abs(model.tcs - oracle.tcs).max()),
+                mis=float(np.abs(model.mis - oracle.mis).max()),
+                transform=_scaled_diff(y, oracle.y),
+                details=max(_scaled_diff(mom[k], v)
+                            for k, v in oracle.details.items()),
+                predict=_scaled_diff(pred, oracle.predict),
+                covariance=_scaled_diff(cov, oracle.covariance))
+            matched = (sorted(mom) == sorted(oracle.details)
+                       and fields["iters_per_stage_card"]
+                       == fields["iters_per_stage_oracle"]
+                       and fields["clusters_equal"]
+                       and max(diffs.values()) < F64_TOL)
+            fixed = kw.get("optimizer") == "fixed_point"
+            held = matched or fixed and _fixed_point_held(fields)
+            emit("oracle_card", shape="small", row=name, n=n, p=p, m=m,
+                 gate="fixed_point" if fixed else "step_matched",
+                 step_matched=matched, held=held, diffs=diffs, bound=F64_TOL,
+                 fixed_point_bound=ORACLE_FP_TOL, card=card, **fields)
+            check(held, f"oracle_card small '{name}': the card is not held "
+                  f"to the oracle ({diffs}, {fields})")
+
+        # the other side of the conditioning finding: the fixed point with
+        # more factors than planted blocks, reported
+        oracle = oracles[f"small_fixed_point_gram_m{wide_m}"]
+        emit("oracle_card", shape="small", row=f"fixed_point_gram_m{wide_m}",
+             n=n, p=p, m=wide_m, gate="reported", bound=F64_TOL, card=card,
+             **_pair_fields(wide_model, oracle, wide_s, oracle.seconds))
+
+        # the kernel: float32 on the card through the chain kernel
+        ref = oracles["small_momentum_gram"]
+        rel_tc = abs(kernel.tc - ref.tc) / abs(ref.tc)
+        same = bool(np.array_equal(kernel.clusters, ref.clusters))
+        emit("oracle_card", shape="small", row="kernel_f32", n=n, p=p, m=m,
+             gate="kernel", kernel_launches=ran, tc_card=kernel.tc,
+             tc_oracle=ref.tc, tc_rel_diff=rel_tc, clusters_equal=same,
+             bound=SMALL_TOL_REL, card_seconds=kernel_s, card=card)
+        check(same and rel_tc < SMALL_TOL_REL,
+              f"oracle_card kernel_f32: clusters equal {same}, TC "
+              f"{rel_tc:.3e} relative from the oracle (bound "
+              f"{SMALL_TOL_REL:g})")
+        check(ran > 0 or device == "cpu",
+              "oracle_card kernel_f32: the chain kernel never launched")
+        return {"oracle_card_f32": ran}
+    return compare
 
 
-def _oracle_lanes(card, device, xs, m, max_iter):
-    """ORACLE_LANES float64 restart lanes (`parallel.restarts.
-    fit_restarts`, gram) from `init_restarts`' stack: momentum lanes each
-    step-matched (iterations per stage, clusters, every iteration's TC,
-    final TC and W within F64_TOL) with the oracle fit from that lane's W0;
-    fixed-point lanes held by `_fixed_point_held`, with where they part
-    (see ORACLE_ROWS)."""
+def _oracle_lanes(child):
+    """ORACLE_LANES float64 restart lanes at the small shape
+    (`parallel.restarts.fit_restarts`, gram) from `init_restarts`' stack:
+    momentum lanes each step-matched (iterations per stage, clusters,
+    every iteration's TC, final TC and W within F64_TOL) with the oracle
+    fit from that lane's W0; fixed-point lanes held by
+    `_fixed_point_held`, with where they part (see ORACLE_ROWS). Runs the
+    card's sweeps and returns the comparisons, a function of the child's
+    records."""
     from types import SimpleNamespace
 
     import numpy as np
     import torch
     from linearcorex_tpu_torch.config import CorexConfig
-    from linearcorex_tpu_torch.oracle import OracleCorex
     from linearcorex_tpu_torch.ops import moments as Mo
     from linearcorex_tpu_torch.ops import preprocessing as Pp
     from linearcorex_tpu_torch.parallel import restarts as R
 
+    device, xs, m = child.device, child.inputs["xs"], child.small[2]
     n, p = xs.shape
     xt, _ = Pp.fit_preprocess(torch.as_tensor(xs, dtype=torch.float64,
                                               device=device), "standard")
     gram = Mo.compute_gram(xt)
     del xt
-    w0s = R.init_restarts(ORACLE_LANES, m, p, 17, torch.float64, device)
+    w0s = torch.as_tensor(child.inputs["w0s"], device=device)
+    sweeps = []
     for opt in ("fixed_point", "momentum"):
-        cfg = CorexConfig(n_hidden=m, dtype="float64", max_iter=max_iter,
-                          optimizer=opt)
+        cfg = CorexConfig(n_hidden=m, dtype="float64",
+                          max_iter=child.small_max_iter, optimizer=opt)
         (ws, mom, diag), secs = _timed(
             lambda: R.fit_restarts(gram, w0s, cfg, "gram", n_samples=n),
             device)
         iters = diag.iters_per_stage.cpu().numpy()
         hist = diag.tc_history.cpu().numpy()
-        for r in range(ORACLE_LANES):
-            oracle, oracle_s = _timed(lambda: OracleCorex(
-                n_hidden=m, max_iter=max_iter, optimizer=opt).fit(
-                xs, init_ws=w0s[r].cpu().numpy()), "cpu")
-            lane = SimpleNamespace(
-                history=dict(iters_per_stage=iters[r].tolist(),
-                             TC=np.concatenate([hist[r, s, :k] for s, k
-                                                in enumerate(iters[r])])),
-                tc=float(mom.tc[r]), ws=ws[r],
-                clusters=torch.argmax(mom.mi[r], dim=0).cpu().numpy())
-            fields = _pair_fields(lane, oracle, secs, oracle_s)
-            matched = (fields["iters_per_stage_card"]
-                       == fields["iters_per_stage_oracle"]
-                       and fields["clusters_equal"]
-                       and max(fields["tc_history_max_abs_diff"],
-                               fields["tc_abs_diff"],
-                               fields["w_max_abs_diff"]) < F64_TOL)
-            fixed = opt == "fixed_point"
-            held = matched or fixed and _fixed_point_held(fields)
-            emit("oracle_card", shape="small", row=f"lanes_{opt}", lane=r,
-                 lanes=ORACLE_LANES, n=n, p=p, m=m,
-                 gate="fixed_point" if fixed else "step_matched",
-                 step_matched=matched, held=held, bound=F64_TOL,
-                 fixed_point_bound=ORACLE_FP_TOL, card=card, **fields)
-            check(held, f"oracle_card lanes_{opt}: lane {r} is not held to "
-                  f"the oracle fit from its W0 ({fields})")
+        lanes = [SimpleNamespace(
+            history=dict(iters_per_stage=iters[r].tolist(),
+                         TC=np.concatenate([hist[r, s, :k] for s, k
+                                            in enumerate(iters[r])])),
+            tc=float(mom.tc[r]), ws=ws[r],
+            clusters=torch.argmax(mom.mi[r], dim=0).cpu().numpy())
+            for r in range(ORACLE_LANES)]
+        sweeps.append((opt, secs, lanes))
+
+    def compare(oracles):
+        for opt, secs, lanes in sweeps:
+            for r, lane in enumerate(lanes):
+                oracle = oracles[f"lanes_{opt}_{r}"]
+                fields = _pair_fields(lane, oracle, secs, oracle.seconds)
+                matched = (fields["iters_per_stage_card"]
+                           == fields["iters_per_stage_oracle"]
+                           and fields["clusters_equal"]
+                           and max(fields["tc_history_max_abs_diff"],
+                                   fields["tc_abs_diff"],
+                                   fields["w_max_abs_diff"]) < F64_TOL)
+                fixed = opt == "fixed_point"
+                held = matched or fixed and _fixed_point_held(fields)
+                emit("oracle_card", shape="small", row=f"lanes_{opt}", lane=r,
+                     lanes=ORACLE_LANES, n=n, p=p, m=m,
+                     gate="fixed_point" if fixed else "step_matched",
+                     step_matched=matched, held=held, bound=F64_TOL,
+                     fixed_point_bound=ORACLE_FP_TOL, card=child.card,
+                     **fields)
+                check(held, f"oracle_card lanes_{opt}: lane {r} is not held "
+                      f"to the oracle fit from its W0 ({fields})")
+        return {}
+    return compare
 
 
 def small_streaming(card):
@@ -3107,6 +3461,59 @@ def scaling_example_phase(card, device="cuda"):
             {"scaling_example": counts["lane_launches"]})
 
 
+def card_tests_counts(xml_path, code, log=""):
+    """Phase card_tests' gate on pytest's JUnit XML and exit code: exit 0,
+    at least one case, and every collected case passed; a skip fails too,
+    since on the card it means a test found no card. Returns {"tests",
+    "passed", "skipped", "failed", "errors"}."""
+    import xml.etree.ElementTree as ET
+
+    cases = list(ET.parse(xml_path).getroot().iter("testcase"))
+    counts = {k: sum(c.find(tag) is not None for c in cases)
+              for k, tag in (("skipped", "skipped"), ("failed", "failure"),
+                             ("errors", "error"))}
+    counts = dict(tests=len(cases), passed=len(cases) - sum(counts.values()),
+                  **counts)
+    check(code == 0 and cases and counts["passed"] == len(cases),
+          f"card_tests: pytest exited with {code}, {counts} (a skip on the "
+          f"card means a test found no card):\n{log[-5000:]}")
+    return counts
+
+
+def card_tests_phase(card, build_dir):
+    """Phase card_tests: tests/test_torch_cuda.py in a fresh process
+    (`python3 -m pytest -o addopts="" --noconftest -p no:cacheprovider -q
+    --junitxml=...`), which finds the libraries phase build put in
+    `build_dir` by the same build-directory policy. Gates:
+    `card_tests_counts`, and no file of `build_dir` added or rewritten
+    (nothing built twice)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+
+    def built():
+        return {f: os.stat(os.path.join(build_dir, f)).st_mtime_ns
+                for f in os.listdir(build_dir)}
+
+    before = built()
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = os.path.join(tmp, "card_tests.xml")
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "pytest", "-o", "addopts=", "--noconftest",
+             "-p", "no:cacheprovider", "-q", f"--junitxml={xml}", CARD_TESTS],
+            cwd=here, capture_output=True, text=True,
+            timeout=CARD_TESTS_TIMEOUT)
+        seconds = time.perf_counter() - t0
+        log = proc.stdout + proc.stderr
+        check(os.path.exists(xml), f"card_tests: pytest exited with "
+              f"{proc.returncode} and wrote no JUnit file:\n{log[-5000:]}")
+        counts = card_tests_counts(xml, proc.returncode, log)
+    after = built()
+    check(after == before, f"card_tests built again: the build directory "
+          f"went from {sorted(before)} to {sorted(after)}")
+    emit("card_tests", file=CARD_TESTS, **counts, seconds=seconds,
+         build_dir=build_dir, card=card)
+
+
 def timed_operands(dev):
     """The north-star operands for the timing and profile phases: the Gram
     matrix of standardized block data in each mode, and a seeded W0."""
@@ -3214,6 +3621,13 @@ def main():
          device=torch.cuda.get_device_name(0),
          count=torch.cuda.device_count())
 
+    # the north-star block data, and phase oracle_card's oracle fits on it:
+    # a child process on the host, beside the card's phases until the
+    # phase joins it
+    x = block_data(N, P, BLOCKS, seed=DATA_SEED, dev=dev)
+    oracle = OracleChild(card, x=x,
+                         deadline=STARTED + SCRIPT_SECONDS - AFTER_JOIN_SECONDS)
+
     # 2. build: the kernel (nvcc) and the host library (g++) together
     from concurrent.futures import ThreadPoolExecutor
     with ThreadPoolExecutor(max_workers=2) as pool:
@@ -3295,7 +3709,6 @@ def main():
         emit("operands", p=p, m=m, n=n, **check_operands(p, m, n, dev))
 
     # 5. fit: the main paths through the entry points a user calls
-    x = block_data(N, P, BLOCKS, seed=DATA_SEED, dev=dev)
     launches = {}
     model_f32, launches["fit"], fit_s, _ = north_star_fit(x,
                                                           optimizer="auto")
@@ -3356,6 +3769,7 @@ def main():
     del model, plain, thr
 
     lane_launches, sweep_ref = restart_sweeps(x, card)
+    oracle.projection()
     serving(model_f32, x, card)
     launches.update(host_outputs_phase(model_f32, x, card))
     del model_f32
@@ -3383,16 +3797,8 @@ def main():
         warnings.simplefilter("ignore")
         small_fits(card)
         float64_card_vs_cpu(card)
-        launches.update(oracle_card_phase(card))
         launches.update(small_streaming(card))
         lane_launches.update(small_restarts(card))
-        lane_launches.update(selection(dev, card))
-
-    # the first call of a fresh process, cold, warm and warmed
-    torch.cuda.empty_cache()
-    warm_launches, warm_lane_launches = warmup_phase(card)
-    launches.update(warm_launches)
-    lane_launches.update(warm_lane_launches)
 
     # the port's scaling example, in a fresh process: a world of one rank
     # per card
@@ -3400,6 +3806,24 @@ def main():
     example_launches, example_lane_launches = scaling_example_phase(card)
     launches.update(example_launches)
     lane_launches.update(example_lane_launches)
+
+    # the card's float64 fits against the oracle's: the fits, the join of
+    # the oracle child (this process gets every core back), the
+    # comparisons. The phases after it report walls a user pays (beside
+    # the child, default_paths_timing's, selection's and warmup's moved),
+    # so they run on every core
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")
+        launches.update(oracle_card_phase(card, child=oracle))
+        emit("default_paths_timing", card=card, **default_paths_timing(
+            block_data(N, P, BLOCKS, seed=DATA_SEED, dev=dev)))
+        lane_launches.update(selection(dev, card))
+
+    # the first call of a fresh process, cold, warm and warmed
+    torch.cuda.empty_cache()
+    warm_launches, warm_lane_launches = warmup_phase(card)
+    launches.update(warm_launches)
+    lane_launches.update(warm_lane_launches)
 
     # 7. timing
     operands, w0 = timed_operands(dev)
@@ -3514,6 +3938,9 @@ def main():
     profile_iterations(operands["float32"], w0_lanes, "float32", card,
                        label=f"float32_{LANES}_lanes")
     profiling_phase(operands["float32"], w0, card)
+
+    # the card tests, in a fresh process on this build directory
+    card_tests_phase(card, os.path.dirname(rec["path"]))
 
     print(json.dumps({"kernels": [{
         "name": "ns_chain", "route": "cuda",

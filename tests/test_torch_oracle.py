@@ -192,11 +192,12 @@ def test_oracle_card_phase_on_the_cpu(capsys):
 
 
 def test_oracle_card_phase_fails_past_its_host_budget(monkeypatch, capsys):
-    """The phase projects the oracle's full-width fits from one timed
-    evaluation and fails, naming the host's threads, before it runs them
-    when they would pass ORACLE_HOST_BUDGET."""
+    """The oracle child projects its full-width fits from one timed
+    evaluation, and the phase fails, naming the child's threads, before
+    any fit when they would pass the time left before the child's
+    deadline (here none: AFTER_JOIN_SECONDS takes all of SCRIPT_SECONDS)."""
     C = _chip_smoke()
-    monkeypatch.setattr(C, "ORACLE_HOST_BUDGET", 0.0)
+    monkeypatch.setattr(C, "AFTER_JOIN_SECONDS", C.SCRIPT_SECONDS)
     with pytest.raises(RuntimeError, match="threads"):
         C.oracle_card_phase("cpu", device="cpu", full=(200, 40, 8, 4))
     phases = [C.json.loads(ln)["phase"]

@@ -314,19 +314,40 @@ non-zero and does not print the final line.
              where a use_pallas='auto' gate would cross over.
 8. profile   torch.profiler over 20 such iterations per operand mode and
              for 4 float32 lanes: wall, device-busy and idle time per
-             iteration and the kernels that take the most device time.
+             evaluation (a captured chunk's masked ones counted) and the
+             kernels that take the most device time; the capture's
+             seconds and the idle share without them.
    profiling utils.profiling.iteration_rate over the float32 fit_core run
              within 5% of this script's own CUDA-event figure for it; a
              utils.profiling.trace of three iterations holds a kernel of
              ns_chain.cu by name.
+   device_loop  the solver's loop replayed from a captured CUDA graph
+             against the same loop uncaptured (fit_core's private
+             switch), in turns uncaptured, captured, captured,
+             uncaptured, then one of each under torch.profiler: annealed
+             north-star fits (tol=1e-4, LOOP_MAX_ITER a stage) in float32,
+             bfloat16 and int8 operands (the fixed point) and 4 float32
+             momentum lanes (LOOP_LANES_MAX_ITER a stage; 4 fixed-point
+             lanes at m = 512 stay uncaptured by rule: torch runs their
+             batched LU in MAGMA, which a capture refuses). Gates: every
+             run bitwise the first uncaptured one (W and every
+             diagnostic), the captured runs captured, the kernel launched
+             once per evaluation run (masked ones included). Reported:
+             fit_core it/s, idle share, host reads per fit, masked
+             evaluations, K, capture seconds, peak memory, each both ways.
+             device_loop_sweep (run alone, not by main()) measures K in
+             LOOP_CHUNKS the same way at the north star and at small
+             shapes.
 9. card_tests  tests/test_torch_cuda.py in a fresh process (`python3 -m
              pytest -o addopts="" --noconftest -p no:cacheprovider -q
              --junitxml=...`), on the build directory phase build filled:
              exit 0, every collected case passed and none skipped (a skip
              on the card means a test found no card), nothing built again.
 
-Before the last line it prints the kernels' summary line and the card's
-`nvidia-smi` name and power limit; the last line is
+Where an uncaptured mesh form is held to the captured plain fit's kernel
+launches, the plain fit's masked evaluations are taken off (`unmasked`).
+Before the last line it prints the script's seconds, the kernels' summary
+line and the card's `nvidia-smi` name and power limit; the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
@@ -354,6 +375,11 @@ BLOCKS_BAR = 0.95
 TIMED_ITERS = 200
 TIMED_ITERS_LANES = 100
 PROFILED_ITERS = 20
+# phase device_loop: per stage (its annealed fits stop at FIT_TOL sooner),
+# and for its 4-lane momentum fits (a cut depth)
+LOOP_MAX_ITER = 300
+LOOP_LANES_MAX_ITER = 100
+LOOP_CHUNKS = (1, 2, 4, 8, 16)   # the K device_loop_sweep measures
 LANES = 4               # restart lanes of the north-star sweep
 SEL_N, SEL_P, SEL_BLOCKS = 2000, 1024, 4
 SMALL_TOL_REL = 1e-3    # card f32 fit vs the port's float64 CPU fit
@@ -697,6 +723,7 @@ def restart_sweeps(x, card):
                 x, optimizer="auto", n_restarts=LANES, **kw)
         finally:
             R.best_restart = real
+        sweep_unmasked = unmasked(launches[name])
         sweep_peak = torch.cuda.max_memory_allocated()
         fields = check_north_star(name, model, launches[name], x, None)
         check(model.best_restart_ == int(np.argmax(seen["lane_tc"])),
@@ -723,13 +750,14 @@ def restart_sweeps(x, card):
              singles=singles, warnings=msgs, card=card,
              **{k: v for k, v in fields.items() if k != "tc_f32_same_w0"})
         if sweep_ref is None:
-            sweep_ref = sweep_result(model, launches[name], sweep_s)
+            sweep_ref = sweep_result(model, sweep_unmasked, sweep_s)
         del model
     return launches, sweep_ref
 
 
 def sweep_result(model, launches, seconds):
-    """What the sharded phase compares of a restart sweep."""
+    """What the sharded phase compares of a restart sweep (`launches`:
+    those an uncaptured sweep makes, `unmasked`)."""
     return dict(ws=model.ws.clone(), tc=model.tc, best=model.best_restart_,
                 iters=model.diagnostics.iters_per_stage.tolist(),
                 launches=launches, seconds=seconds)
@@ -793,6 +821,7 @@ def sharded_phase(x, card, sweep_ref=None, backend="nccl"):
                 calls = counts()
                 plain = lct.Corex(**fit_kw(moment_strategy="samples", **kw))
                 _, plain_launches, plain_s, _ = counted(lambda: plain.fit(x))
+                plain_launches = unmasked(plain_launches)
                 again = lct.Corex(**fit_kw(moment_strategy="samples", **kw))
                 plain_s = min(plain_s, counted(lambda: again.fit(x))[2])
                 check(torch.equal(again.ws, plain.ws),
@@ -868,7 +897,7 @@ def sharded_phase(x, card, sweep_ref=None, backend="nccl"):
             if sweep_ref is None:
                 plain = lct.Corex(**fit_kw(n_restarts=LANES))
                 _, n_l, s_l, _ = counted(lambda: plain.fit(x), lanes=True)
-                sweep_ref = sweep_result(plain, n_l, s_l)
+                sweep_ref = sweep_result(plain, unmasked(n_l), s_l)
                 del plain
             sweep = lct.Corex(**fit_kw(n_restarts=LANES))
             S.reset_collective_counts()
@@ -1025,6 +1054,7 @@ def sharded_vars_phase(x, card, backend="nccl"):
             # the kernel path: use_pallas='always' under the var plan
             kp = lct.Corex(**fit_kw(use_pallas="always"))
             _, n_plain, s_plain, _ = counted(lambda: kp.fit(x))
+            n_plain = unmasked(n_plain)
             km = lct.Corex(**fit_kw(use_pallas="always"))
             S.reset_collective_counts()
             _, launches["sharded_vars_always"], s_mesh, _ = counted(
@@ -1180,6 +1210,7 @@ def sharded_stream_phase(x, card, backend="nccl"):
                     n_hidden=M, matmul_dtype=dt, **mine, **kw))
                 b, n_b, s_b, _ = counted(lambda: acc_plain.fit(
                     n_hidden=M, matmul_dtype=dt, use_pallas=pallas, **kw))
+                n_b = unmasked(n_b)
                 check(a._serving_plan == var_plan, f"acc.fit/{name}: plan "
                       f"{a._serving_plan}")
                 check(not [w for w in msgs if "overflow" in w],
@@ -1206,6 +1237,7 @@ def sharded_stream_phase(x, card, backend="nccl"):
                 cov, N, M, mesh=mesh, **kw))
             b, n_b, s_b, _ = counted(lambda: lct.fit_from_covariance(
                 cov, N, M, use_pallas="never", **kw))
+            n_b = unmasked(n_b)
             emit("sharded_stream_covariance", mesh_fit_seconds=s_a,
                  plain_fit_seconds=s_b, card=card,
                  **gate("fit_from_covariance", a, b, n_a, n_b))
@@ -1295,6 +1327,7 @@ def sharded_stream_phase(x, card, backend="nccl"):
                     x, mesh=mesh if name == "var" else data_mesh,
                     sharding_plan=plan))
                 _, n_b, s_b, _ = counted(lambda: sp.fit(x))
+                n_b = unmasked(n_b)
                 check(n_a > 0, f"the {name}-plan stack never launched the "
                       f"kernel")
                 layers = [gate(f"stack/{name} layer {k + 1}", a, b, 0, 0)
@@ -1584,19 +1617,22 @@ def _timed(fn, device="cuda"):
 
 def counted(fn, lanes=False, device="cuda"):
     """Run fn() with the chain kernel's launch counts set to 0 just before
-    and read just after. Returns (result, launches, seconds, warnings
-    raised): the one-lane entry's launches, or the lane entry's with
-    `lanes`; the other entry must not have run. Peak device memory of the
+    and read just after (and the solver's loop counts set to 0 before,
+    `unmasked`). Returns (result, launches, seconds, warnings raised):
+    the one-lane entry's launches, or the lane entry's with `lanes`; the
+    other entry must not have run. Peak device memory of the
     run is left in torch.cuda.max_memory_allocated(). With device="cpu"
     (a CPU rehearsal) nothing is synchronized and no peak is kept."""
     import warnings
 
     import torch
+    from linearcorex_tpu_torch.core import solver
     from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
 
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     ns_chain.launches = ns_chain.lane_launches = 0
+    solver.counts.reset()
     with warnings.catch_warnings(record=True) as rec:
         warnings.simplefilter("always")
         out, seconds = _timed(fn, device)
@@ -1606,6 +1642,15 @@ def counted(fn, lanes=False, device="cuda"):
     check(other == 0, "a restart sweep launched the one-lane kernel"
           if lanes else "a single-lane path launched the lane kernel")
     return out, ran, seconds, [str(w.message) for w in rec]
+
+
+def unmasked(launches):
+    """The chain kernel's `launches` in the run `counted` just timed, less
+    those of its masked evaluations (the bodies a captured chunk ran after
+    the fit had stopped): what the same fit launches uncaptured, as a
+    mesh fit runs."""
+    from linearcorex_tpu_torch.core import solver
+    return launches - solver.counts.masked_launches
 
 
 def native_phase(x, card):
@@ -3077,6 +3122,7 @@ def selection(dev, card):
     criteria. Returns {path: lane launches}."""
     import torch
     import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.core import solver
     from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
 
     x = block_data(SEL_N, SEL_P, SEL_BLOCKS, seed=DATA_SEED + 2, dev=dev)
@@ -3086,6 +3132,7 @@ def selection(dev, card):
             name = f"selection_{criterion}_{'padded' if padded else 'seq'}"
             torch.cuda.synchronize()
             ns_chain.launches = ns_chain.lane_launches = 0
+            solver.counts.reset()
             t0 = time.perf_counter()
             best[name], scores = lct.pick_n_hidden(
                 x, repeat=4, max_n_hidden=8, max_iter=2000, seed=0,
@@ -3098,7 +3145,7 @@ def selection(dev, card):
             emit("selection", path=name, best_n=best[name],
                  planted=SEL_BLOCKS, scores=scores.tolist(),
                  wall_seconds=walls[name], lane_launches=launches[name],
-                 card=card)
+                 loop=solver.counts.as_dict(), card=card)
         pad, seq = (best[f"selection_{criterion}_{k}"]
                     for k in ("padded", "seq"))
         check(pad == seq, f"selection '{criterion}': the padded sweep chose "
@@ -3121,6 +3168,7 @@ def warmup_child(spec):
     import torch
 
     import linearcorex_tpu_torch as lct
+    from linearcorex_tpu_torch.core import solver
     from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
     from linearcorex_tpu_torch.utils import build
 
@@ -3133,13 +3181,15 @@ def warmup_child(spec):
 
     def timed(fn):
         ns_chain.launches = ns_chain.lane_launches = 0
+        solver.counts.reset()
         done = len(build.COMPILES)
         t = time.perf_counter()
         res = fn()
         torch.cuda.synchronize()
         return res, dict(s=time.perf_counter() - t, launches=ns_chain.launches,
                          lane_launches=ns_chain.lane_launches,
-                         compiles=build.COMPILES[done:])
+                         compiles=build.COMPILES[done:],
+                         loop=solver.counts.as_dict())
 
     _, out["context"] = timed(lambda: torch.zeros(1, device=dev))
     kind = spec["kind"]
@@ -3321,6 +3371,11 @@ def warmup_phase(card):
                              first_fit_s=c["fits"][0]["s"],
                              second_fit_s=c["fits"][1]["s"],
                              process_s=c["process_s"]),
+                 capture_s=dict(warmup=c["warmup"]["loop"]["capture_seconds"],
+                                first_fit=c["fits"][0]["loop"][
+                                    "capture_seconds"],
+                                second_fit=c["fits"][1]["loop"][
+                                    "capture_seconds"]),
                  tc=b["fits"][0]["tc"], n_iter=b["fits"][0]["n_iter"],
                  warmed_fit_bitwise=True, saved_model_equal=True,
                  card=card)
@@ -3353,6 +3408,9 @@ def warmup_phase(card):
              max_iter=WARMUP_SWEEP_MAX_ITER, first_sweep_s=first["s"],
              second_sweep_s=e["sweeps"][1]["s"], best_n=first["best"],
              bitwise_unwarmed_sweep=True,
+             capture_s=dict(warmup_sweep=e["warmup_sweep"]["loop"][
+                 "capture_seconds"], first_sweep=first["loop"][
+                 "capture_seconds"]),
              process_s=e["process_s"], card=card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
@@ -3573,27 +3631,276 @@ def profile_iterations(data, w0, mode, card, label=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from linearcorex_tpu_torch.core import solver
+
     run, _ = fit_core_runner(data, w0, mode, "always", PROFILED_ITERS)
     run()
     torch.cuda.synchronize()
+    solver.counts.reset()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    kernels = _device_kernels(prof)
+    # the evaluations the loop ran: the stage's first, then every body
+    # (a captured chunk's masked bodies too)
+    loop = solver.counts.as_dict()
+    evals = loop["first_evaluations"] + loop["bodies"]
+    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / evals
+    wall_ms = wall * 1e3 / evals
+    replay_ms = (wall - loop["capture_seconds"]) * 1e3 / evals
+    emit("profile", mode=label or mode, evaluations=evals,
+         iterations=loop["iterations"], masked=loop["masked"],
+         captured=bool(loop["captured_fits"]),
+         capture_seconds=loop["capture_seconds"], wall_ms=wall_ms,
+         device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
+         idle_share_without_capture=1 - busy_ms / replay_ms,
+         top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3 / evals,
+               "calls": e.count / evals} for e in kernels[:10]], card=card)
+
+
+def _device_kernels(prof):
+    """The profiler's CUDA kernels (graph replays' included), by device
+    time, most first."""
+    import torch
+
     kernels = [e for e in prof.key_averages()
                if getattr(e, "device_time_total", 0) > 0
                and e.device_type == torch.autograd.DeviceType.CUDA]
     kernels.sort(key=lambda e: -e.device_time_total)
-    # one iteration = one objective evaluation; fit_core runs one more
-    evals = PROFILED_ITERS + 1
-    busy_ms = sum(e.device_time_total for e in kernels) / 1e3 / evals
-    wall_ms = wall * 1e3 / evals
-    emit("profile", mode=label or mode, evaluations=evals, wall_ms=wall_ms,
-         device_busy_ms=busy_ms, idle_share=1 - busy_ms / wall_ms,
-         top=[{"kernel": e.key[:90], "ms": e.device_time_total / 1e3 / evals,
-               "calls": e.count / evals} for e in kernels[:10]], card=card)
+    return kernels
+
+
+def loop_problem(data, w0, mode, optimizer, max_iter, tol=FIT_TOL):
+    """(objective, config) of an annealed fit through the chain kernel on
+    the north-star gram operand `data` in operand mode `mode`, from `w0`
+    ((m, p), or (k, m, p) for k lanes)."""
+    from linearcorex_tpu_torch.config import CorexConfig
+    from linearcorex_tpu_torch.models.corex import _make_obj_grad
+
+    cfg = CorexConfig(n_hidden=w0.shape[-2], max_iter=max_iter, tol=tol,
+                      optimizer=optimizer, use_pallas="always",
+                      matmul_dtype=mode)
+    return _make_obj_grad(data, cfg, "gram"), cfg
+
+
+def loop_run(obj_grad, w0, cfg, profiled=False, **kw):
+    """One `fit_core` run at full float32 with the chain kernel's and the
+    loop's counts set to 0 just before and the peak memory reset:
+    (ws, diagnostics, record). The record: wall seconds (host clock
+    around a synchronized run), lockstep iterations and iterations/s, the
+    loop counts (`core.solver.counts`), the kernel's launches, peak
+    allocated and reserved bytes; `profiled` runs it under torch.profiler
+    and adds the device-busy seconds and idle share. `kw` goes to
+    fit_core (`_capture`, `_chunk`)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from linearcorex_tpu_torch.core import solver
+    from linearcorex_tpu_torch.ops import moments as Mo
+    from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+
+    out = {}
+
+    def run():
+        with Mo.full_f32_matmul():
+            out["fit"] = solver.fit_core(obj_grad, w0, cfg, **kw)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    solver.counts.reset()
+    ns_chain.launches = ns_chain.lane_launches = 0
+    if profiled:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            _, wall = _timed(run)
+    else:
+        _, wall = _timed(run)
+    loop = solver.counts.as_dict()
+    rec = dict(wall_s=wall, iterations=loop["iterations"],
+               it_per_s=loop["iterations"] / wall, loop=loop,
+               launches=ns_chain.launches + ns_chain.lane_launches,
+               peak_bytes=torch.cuda.max_memory_allocated(),
+               peak_reserved_bytes=torch.cuda.max_memory_reserved())
+    if profiled:
+        busy = sum(e.device_time_total for e in _device_kernels(prof)) / 1e6
+        rec.update(busy_s=busy, idle_share=1 - busy / wall,
+                   idle_share_without_capture=1 - busy / (
+                       wall - loop["capture_seconds"]))
+    return (*out["fit"], rec)
+
+
+def _same_fit(a, b):
+    """Whether two fit_core results are the same bits: W and every field
+    of the diagnostics, on the same devices in the same dtypes."""
+    import torch
+
+    (ws_a, d_a), (ws_b, d_b) = a, b
+    return torch.equal(ws_a, ws_b) and all(
+        x.device == y.device and x.dtype == y.dtype and torch.equal(x, y)
+        for x, y in zip(d_a, d_b))
+
+
+def north_star_loop_cases(operands, w0, w0_lanes):
+    """(label, operand mode, operand, W0, optimizer, max_iter) of the
+    device_loop cells at the north star: the fixed point in each operand
+    mode, and 4 float32 momentum lanes (4 fixed-point lanes at m = 512
+    stay uncaptured by rule)."""
+    cases = [(mode, mode, operands[mode], w0, "fixed_point", LOOP_MAX_ITER)
+             for mode in ("float32", "bfloat16", "int8")]
+    cases.append((f"float32_{LANES}_lanes", "float32", operands["float32"],
+                  w0_lanes, "momentum", LOOP_LANES_MAX_ITER))
+    return cases
+
+
+def device_loop_phase(operands, w0, w0_lanes, card):
+    """Phase device_loop: annealed fits at the north star (p = 10,000,
+    m = 512, gram, the chain kernel, FIT_TOL, LOOP_MAX_ITER a stage) in
+    float32, bfloat16 and int8 operands (the fixed point), and 4 float32
+    lanes (momentum, LOOP_LANES_MAX_ITER a stage: 4 fixed-point lanes at
+    m = 512 run uncaptured by rule, their batched LU being MAGMA's), each
+    captured (the path's choice) against uncaptured (fit_core's private
+    switch) in turns uncaptured, captured, captured, uncaptured, then one
+    of each under torch.profiler. Gates: every run bitwise the first
+    uncaptured one (W and every diagnostic), the captured runs captured
+    and the kernel launched once per evaluation run (masked ones
+    included). Reported per mode: fit_core it/s, idle share, host reads,
+    masked evaluations, K, capture seconds and peak memory of both."""
+    from linearcorex_tpu_torch.core import solver
+
+    for label, mode, data, w, optimizer, max_iter in north_star_loop_cases(
+            operands, w0, w0_lanes):
+        obj_grad, cfg = loop_problem(data, w, mode, optimizer, max_iter)
+        runs = {False: [], True: []}
+        ref = None
+        for captured in (False, True, True, False):
+            ws, diag, rec = loop_run(obj_grad, w, cfg,
+                                     _capture=None if captured else False)
+            loop = rec["loop"]
+            check(loop["captured_fits"] == int(captured),
+                  f"device_loop {label}: captured_fits "
+                  f"{loop['captured_fits']}, want {int(captured)}")
+            check(rec["launches"] == loop["first_evaluations"]
+                  + loop["bodies"],
+                  f"device_loop {label}: {rec['launches']} launches for "
+                  f"{loop['first_evaluations'] + loop['bodies']} "
+                  f"evaluations")
+            if ref is None:
+                ref = (ws, diag)
+            kind = "captured" if captured else "uncaptured"
+            check(_same_fit((ws, diag), ref),
+                  f"device_loop {label}: an {kind} run differs from the "
+                  f"first uncaptured one")
+            runs[captured].append(rec)
+            del ws, diag
+        prof = {c: loop_run(obj_grad, w, cfg, profiled=True,
+                            _capture=None if c else False)[2]
+                for c in (False, True)}
+        best = {c: min(runs[c], key=lambda r: r["wall_s"]) for c in runs}
+        emit("device_loop", mode=label, optimizer=optimizer,
+             lanes=w.shape[0] if w.ndim == 3 else 1, max_iter=max_iter,
+             tol=FIT_TOL, chunk=solver.CHUNK,
+             iterations=best[True]["iterations"],
+             iters_per_stage=ref[1].iters_per_stage.tolist(),
+             it_per_s_captured=best[True]["it_per_s"],
+             it_per_s_uncaptured=best[False]["it_per_s"],
+             speedup=best[True]["it_per_s"] / best[False]["it_per_s"],
+             idle_share_captured=prof[True]["idle_share"],
+             idle_share_captured_without_capture=prof[True][
+                 "idle_share_without_capture"],
+             idle_share_uncaptured=prof[False]["idle_share"],
+             host_reads_captured=best[True]["loop"]["host_reads"],
+             host_reads_uncaptured=best[False]["loop"]["host_reads"],
+             masked=best[True]["loop"]["masked"],
+             capture_seconds=best[True]["loop"]["capture_seconds"],
+             launches_captured=best[True]["launches"],
+             launches_uncaptured=best[False]["launches"],
+             peak_bytes_captured=best[True]["peak_bytes"],
+             peak_bytes_uncaptured=best[False]["peak_bytes"],
+             peak_reserved_captured=best[True]["peak_reserved_bytes"],
+             peak_reserved_uncaptured=best[False]["peak_reserved_bytes"],
+             bitwise=True,
+             turns={("captured" if c else "uncaptured"):
+                    [r["it_per_s"] for r in runs[c]] for c in runs},
+             card=card)
+    lanes_fp = loop_problem(operands["float32"], w0_lanes, "float32",
+                            "fixed_point", LOOP_LANES_MAX_ITER)[1]
+    emit("device_loop_rule", lanes=LANES, m=M,
+         fixed_point_lanes_captured=solver._without_magma(lanes_fp,
+                                                          w0_lanes),
+         card=card)
+
+
+def device_loop_sweep(card):
+    """K against wall: annealed fits with K in LOOP_CHUNKS, each captured,
+    beside the uncaptured loop, in turns (every K forward, then backward),
+    at the north star (fixed point in float32, bfloat16 and int8; 4
+    momentum lanes), at the selection's shape (32 lanes of m = 8, n =
+    2,000, p = 1,024, the fixed point) and at a stack's layer 2 (n =
+    10,000, p = 512, m = 32, block data, the fixed point); LOOP_MAX_ITER
+    a stage (4 lanes: LOOP_LANES_MAX_ITER). Every run bitwise the
+    uncaptured one. Run alone: `python3 -c "import chip_smoke as C;
+    C.device_loop_sweep(C.card_line())"`."""
+    import numpy as np
+    import torch
+    from linearcorex_tpu_torch.ops import moments as Mo
+    from linearcorex_tpu_torch.parallel.restarts import init_restarts
+    from linearcorex_tpu_torch.utils import build
+
+    build.build("ns_chain")
+    build.load("ns_chain")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    operands, w0 = timed_operands(dev)
+    cases = north_star_loop_cases(operands, w0, init_restarts(
+        LANES, M, P, 0, torch.float32, dev))
+
+    def standardized_gram(n, p, blocks, seed):
+        x = block_data(n, p, blocks, seed=seed, dev=dev)
+        return Mo.compute_gram((x - x.mean(0)) / x.std(0, correction=0))
+
+    cases.append(("selection_32_lanes", "float32", standardized_gram(
+        SEL_N, SEL_P, SEL_BLOCKS, DATA_SEED + 2),
+        init_restarts(32, 8, SEL_P, 0, torch.float32, dev), "fixed_point",
+        LOOP_MAX_ITER))
+    cases.append(("stack_layer_2", "float32",
+                  standardized_gram(N, M, 32, DATA_SEED),
+                  torch.as_tensor(np.random.RandomState(0).normal(
+                      scale=1 / np.sqrt(M), size=(32, M)),
+                      dtype=torch.float32, device=dev), "fixed_point",
+                  LOOP_MAX_ITER))
+    for label, mode, data, w, optimizer, max_iter in cases:
+        obj_grad, cfg = loop_problem(data, w, mode, optimizer, max_iter)
+        variants = [None] + list(LOOP_CHUNKS)
+        recs = {v: [] for v in variants}
+        ref = None
+        for v in variants + variants[::-1]:
+            kw = dict(_capture=False) if v is None else dict(_capture=True,
+                                                            _chunk=v)
+            ws, diag, rec = loop_run(obj_grad, w, cfg, **kw)
+            if ref is None:
+                ref = (ws, diag)
+            check(_same_fit((ws, diag), ref),
+                  f"device_loop_sweep {label}: K={v} differs from the "
+                  f"uncaptured loop")
+            recs[v].append(rec)
+            del ws, diag
+        emit("device_loop_sweep", case=label, optimizer=optimizer,
+             lanes=w.shape[0] if w.ndim == 3 else 1, m=w.shape[-2],
+             p=w.shape[-1], iterations=recs[None][0]["iterations"],
+             iters_per_stage=ref[1].iters_per_stage.tolist(),
+             results=[dict(chunk=v or "uncaptured",
+                           it_per_s=max(r["it_per_s"] for r in recs[v]),
+                           wall_s=min(r["wall_s"] for r in recs[v]),
+                           turns_wall_s=[r["wall_s"] for r in recs[v]],
+                           host_reads=recs[v][0]["loop"]["host_reads"],
+                           masked=recs[v][0]["loop"]["masked"],
+                           capture_seconds=min(r["loop"]["capture_seconds"]
+                                               for r in recs[v]),
+                           peak_bytes=recs[v][0]["peak_bytes"])
+                      for v in variants], card=card)
 
 
 def main():
@@ -3939,9 +4246,14 @@ def main():
                        label=f"float32_{LANES}_lanes")
     profiling_phase(operands["float32"], w0, card)
 
+    # the solver's loop: the captured graph against the uncaptured loop
+    device_loop_phase(operands, w0, w0_lanes, card)
+    del operands
+
     # the card tests, in a fresh process on this build directory
     card_tests_phase(card, os.path.dirname(rec["path"]))
 
+    emit("script", seconds=time.perf_counter() - STARTED, card=card)
     print(json.dumps({"kernels": [{
         "name": "ns_chain", "route": "cuda",
         "source": "linearcorex_tpu_torch/csrc/ns_chain.cu",

@@ -39,7 +39,7 @@ def main():
     dev = args.device
     x = make_block_data()
 
-    # Fit: the annealed optimization, one host read per iteration.
+    # Fit: the annealed optimization; on a card its loop replays a CUDA graph.
     model = lct.Corex(n_hidden=8, seed=0, verbose=True, device=dev).fit(x)
 
     print(f"\ntotal correlation explained: {model.tc:.3f}")

@@ -31,8 +31,9 @@ Differences by design:
 - `device` (default "cuda") names where the fit runs. A CUDA device that
   is not there raises; nothing moves to the CPU behind the caller's back.
   `device="cpu"` runs the same code with the chain kernel's plain twin.
-- The fit is a Python loop with one host read per iteration
-  (`core.solver`), not one compiled program.
+- The fit is not one compiled program: `core.solver` keeps the loop's
+  state on the device and, on a card outside a mesh, replays a captured
+  CUDA graph of a few iterations between host reads.
 - `use_pallas='auto'` takes the CUDA chain kernel on a CUDA device for
   every non-overlap float32 fit the kernel supports, whatever the operand
   mode. The JAX package's m >= 128 gate was a TPU measurement and is not
@@ -314,6 +315,8 @@ def _make_obj_grad(data, cfg: CorexConfig, strategy: str, model=None):
             "Corex.fit implements the two-program subsampled staging — "
             "set stage_subsample=1 for other callers.")
     gram = strategy == "gram"
+    # the objective's scalars on the device, before its first evaluation
+    M.prepare_constants(data, cfg.y_scale, torch_dtype(cfg.dtype), gram)
     if not cfg.discourage_overlap:
         # fixed_point + overlap is rejected by CorexConfig.__post_init__
         fn = M.overlap_obj_grad_gram if gram else M.overlap_obj_grad_samples
@@ -328,10 +331,14 @@ def _make_obj_grad(data, cfg: CorexConfig, strategy: str, model=None):
                               bf16=bf16, chain_kernel=chain, model=model)
 
 
-def _fit_program(data, w0, cfg: CorexConfig, strategy: str, model=None):
+def _fit_program(data, w0, cfg: CorexConfig, strategy: str, model=None,
+                 mesh: bool = False):
     """The complete fit: annealed solve → final moments → factor sort.
     Returns (ws, Moments, FitDiagnostics). W0 of shape (k, m, p) fits k
-    restart lanes and returns each with a leading lane axis.
+    restart lanes and returns each with a leading lane axis. `mesh`: the
+    fit runs over a device mesh (`parallel.sharding`,
+    `parallel.restarts.fit_restarts_sharded`), so its solver loop is not
+    captured into a CUDA graph (`core.solver.fit_core`).
 
     One fit runs in `precision_ctx(cfg)`. Restart lanes run at full
     float32 whatever `matmul_precision` says, as the JAX package's
@@ -345,7 +352,8 @@ def _fit_program(data, w0, cfg: CorexConfig, strategy: str, model=None):
         cfg, w0.device)
     with scope:
         ws, diag = fit_core(_make_obj_grad(data, cfg, strategy, model), w0,
-                            cfg, M.Split(M.var_of(data), model).w_axes)
+                            cfg, M.Split(M.var_of(data), model).w_axes,
+                            _mesh=mesh)
         ws_sorted, mom = final_moments(data, ws, cfg, strategy, model)
         return ws_sorted, mom, diag
 

@@ -19,16 +19,24 @@ pass (`lcx_ns_chain_lanes`), and `ns_chain_reference` is the batched
 plain twin. Lane l's kernel outputs are bitwise those of a one-lane
 launch on lane l's inputs. Launches through the lane entry are counted
 in `ns_chain.lane_launches`, one-lane launches in `ns_chain.launches`.
+
+CUDA graphs: a call inside `counting_capture()` is recorded into the
+graph being captured, not run, so it adds to the scope's tally instead of
+the counters; the solver adds the tally to the counters at every replay
+(`count_replay`). So the counters count the kernel's runs, replayed or
+not.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
 import torch
 
-__all__ = ["ns_chain", "ns_chain_reference", "chain_supported"]
+__all__ = ["ns_chain", "ns_chain_reference", "chain_supported",
+           "counting_capture", "count_replay"]
 
 # The kernel's tiles do not depend on m, but its scratch holds the m x m
 # partials of H over a few ranges of p; this caps that at ~270 MB.
@@ -183,10 +191,11 @@ def ns_chain(c_xy: torch.Tensor, ry: torch.Tensor, sqz: torch.Tensor,
         raise RuntimeError(
             f"ns_chain kernel launch failed: CUDA error {rc} "
             f"({lib.lcx_error_string(rc).decode()})")
-    if lanes:
-        ns_chain.lane_launches += 1
+    key = "lane_launches" if lanes else "launches"
+    if _CAPTURES:
+        _CAPTURES[-1][key] += 1
     else:
-        ns_chain.launches += 1
+        setattr(ns_chain, key, getattr(ns_chain, key) + 1)
     return (aa, hmat, red[..., :m], red[..., m:2 * m], red[..., 2 * m:3 * m],
             red[..., 3 * m])
 
@@ -202,6 +211,30 @@ def _check_lanes(lib, k, p, m):
         raise ValueError(
             f"ns_chain: {k} lanes of (p, m) = ({p}, {m}) exceed the {most} "
             f"one launch takes; split the lanes")
+
+
+# the tallies of the graph captures in progress, innermost last
+_CAPTURES: list = []
+
+
+@contextlib.contextmanager
+def counting_capture():
+    """The scope of a CUDA graph capture: each `ns_chain` launch inside is
+    recorded into the graph, not run, and adds one to the yielded tally
+    ({'launches', 'lane_launches'}) instead of the counters."""
+    tally = {"launches": 0, "lane_launches": 0}
+    _CAPTURES.append(tally)
+    try:
+        yield tally
+    finally:
+        _CAPTURES.pop()
+
+
+def count_replay(tally: dict) -> None:
+    """Count one replay of a graph whose capture tallied `tally`: its
+    launches run again, so each adds to the counters."""
+    ns_chain.launches += tally["launches"]
+    ns_chain.lane_launches += tally["lane_launches"]
 
 
 ns_chain.launches = 0

@@ -33,6 +33,12 @@ Port of `linearcorex_tpu/ops/moments.py`:
 Annealing enters analytically: C_xy ← (1−eps²)·⟨x·y⟩ + eps²·Wᵀ. `eps` may
 be a Python float or a 0-dim tensor of the compute dtype.
 
+No objective evaluation reads a value from the device or copies one from
+the host, so the solver can capture evaluations into a CUDA graph: the
+scalars they need on the device (log y_scale, a half dtype's sample
+count) are cached device constants (`device_scalar`), made before the
+first evaluation (`prepare_constants`).
+
 Restart lanes: every objective and moment function also takes `ws` of
 shape (k, m, p), k independent fits side by side (`parallel.restarts`),
 and returns its outputs with a leading lane axis. The data operand (X, Σ,
@@ -140,8 +146,48 @@ def _per_sample(t, n):
     10,000 is 9984 in bfloat16), where torch would divide by it in
     float32; in float32 and float64 torch already rounds it so."""
     if t.dtype in HALF_DTYPES:
-        return t / torch.tensor(n, dtype=t.dtype, device=t.device)
+        return t / device_scalar(n, t.dtype, t.device)
     return t / n
+
+
+@functools.cache
+def device_scalar(value, dtype, device) -> torch.Tensor:
+    """`torch.tensor(value, dtype=dtype, device=device)`, made once per
+    (value, dtype, device) and kept, so an evaluation uses it without a
+    copy from the host (a CUDA graph cannot hold one). The solver's
+    objectives make theirs before their first evaluation
+    (`prepare_constants`); one first asked for inside a graph capture
+    raises."""
+    _made_outside_capture(value, dtype, device)
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
+@functools.cache
+def _log_scalar(value, dtype, device) -> torch.Tensor:
+    """log(`value`) in `dtype` on `device`, computed there once: the bits
+    of `torch.log` of `device_scalar`, which every evaluation took."""
+    _made_outside_capture(value, dtype, device)
+    return torch.log(device_scalar(value, dtype, device))
+
+
+def _made_outside_capture(value, dtype, device) -> None:
+    if torch.device(device).type == "cuda" and \
+            torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            f"the device constant {value!r} ({dtype}) was not made before "
+            f"the CUDA graph capture: prepare_constants() must cover it")
+
+
+def prepare_constants(data, y_scale: float, dtype, gram: bool) -> None:
+    """Make the device constants an objective on `data` in compute dtype
+    `dtype` takes (`device_scalar`): log(y_scale), and in a half dtype on
+    the samples strategy the sample count. Called once per objective,
+    before its first evaluation."""
+    local = _unsharded(data)[0]
+    device = (local.q if isinstance(local, QuantizedData) else local).device
+    _log_scalar(y_scale, dtype, device)
+    if dtype in HALF_DTYPES and not gram:
+        device_scalar(n_rows(data), dtype, device)
 
 
 def check_factorizable(dtype, op: str) -> None:
@@ -740,8 +786,7 @@ def _moment_parts(ws, c_xy, y_scale, rho_clip, sp=NO_SPLIT):
     # reconstruction, (1 + Q_i − S_i²)/(1 + S_i)².
     vi = (1.0 + qi - si ** 2) / (1.0 + si) ** 2
     mi = -0.5 * torch.log1p(-rho ** 2)
-    i_y_x = 0.5 * torch.log(z2) - torch.log(
-        torch.tensor(y_scale, dtype=dt, device=ws.device))
+    i_y_x = 0.5 * torch.log(z2) - _log_scalar(y_scale, dt, ws.device)
     tcs = sp.all_factors(sp.vsum(torch.sum(mi, dim=-1)) - sp.mine(i_y_x))
     tc = torch.sum(tcs, dim=-1)
     objective = 0.5 * sp.vsum(torch.sum(torch.log(torch.clamp(
@@ -862,8 +907,7 @@ def _chain_obj_tc(dt, z2, sum_log_vi, mi_sums, y_scale):
     """Objective F and TC from the chain kernel's reductions."""
     objective = 0.5 * sum_log_vi.to(dt) \
         + 0.5 * torch.sum(torch.log(z2), dim=-1)
-    i_y_x = 0.5 * torch.log(z2) - torch.log(
-        torch.tensor(y_scale, dtype=dt, device=z2.device))
+    i_y_x = 0.5 * torch.log(z2) - _log_scalar(y_scale, dt, z2.device)
     tc = torch.sum(mi_sums.to(dt) - i_y_x, dim=-1)
     return objective, tc
 
@@ -1043,8 +1087,7 @@ def _overlap_core(ws, b, cy_chol, y_scale, sp=NO_SPLIT):
     logdet = 2.0 * torch.sum(
         torch.log(torch.diagonal(cy_chol, dim1=-2, dim2=-1)), dim=-1)
     f = 0.5 * sp.vsum(torch.sum(torch.log(v), dim=-1)) + 0.5 * logdet \
-        - m * torch.log(torch.tensor(y_scale, dtype=ws.dtype,
-                                     device=ws.device))
+        - m * _log_scalar(y_scale, ws.dtype, ws.device)
     return f, bm, v
 
 

@@ -165,7 +165,7 @@ def fit_restarts_sharded(data, w0_batch, cfg: CorexConfig, strategy: str,
     w0 = S._as_device_tensor(
         w0_batch[lane_axis.index * per:(lane_axis.index + 1) * per],
         device, dt)
-    ws, mom, diag = _fit_program(data, w0, cfg, strategy)
+    ws, mom, diag = _fit_program(data, w0, cfg, strategy, mesh=True)
     # the per-stage iteration counts are kept on the host by the solver
     parts = [ws, *mom, *(a.to(device) for a in diag)]
     whole = all_gather_lanes(parts, lane_axis)

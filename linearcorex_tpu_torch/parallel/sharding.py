@@ -573,7 +573,8 @@ def fit_shard_map(x, w0, cfg: CorexConfig, mesh,
     local = shard_rows(x, axes, device,
                        None if isinstance(x, torch.Tensor) else dt)
     return _fit_program(M.ShardedSamples(local, n_total, axes),
-                        _as_device_tensor(w0, device, dt), cfg, "samples")
+                        _as_device_tensor(w0, device, dt), cfg, "samples",
+                        mesh=True)
 
 
 def fit_sharded(data, w0, cfg: CorexConfig, mesh,
@@ -604,7 +605,8 @@ def fit_sharded(data, w0, cfg: CorexConfig, mesh,
     ensure_compile_cache()
     data, w_local, model, cfg = _sharded_operands(
         data, w0, cfg, mesh, plan, strategy, n_samples, check_overflow)
-    return _fit_program(data, w_local, cfg, strategy, model=model)
+    return _fit_program(data, w_local, cfg, strategy, model=model,
+                        mesh=True)
 
 
 def finish_sharded(data, ws, cfg: CorexConfig, mesh,

@@ -13,7 +13,10 @@ Port of `linearcorex_tpu/utils/profiling.py`:
   before the work is done), and the minimum over repetitions. Compare two
   versions only within one process on one card, and keep the card's name
   and power limit beside the number: a card set below its maximum power
-  runs slower under load.
+  runs slower under load. The iterations are the diagnostics' (every
+  stage's count), never the evaluations: a captured solver loop also runs
+  masked evaluations past a stage's end (`core.solver.counts`), which
+  are not iterations.
 """
 
 from __future__ import annotations

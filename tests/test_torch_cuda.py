@@ -21,6 +21,7 @@ import pytest
 import torch
 
 import linearcorex_tpu_torch as lct
+from linearcorex_tpu_torch.core import solver as TS
 from linearcorex_tpu_torch.ops import cuda_moments as CM
 from linearcorex_tpu_torch.oracle import OracleCorex
 from linearcorex_tpu_torch.ops import moments as TM
@@ -562,8 +563,12 @@ def test_var_and_factor_fits_in_a_world_of_one_are_the_plain_fit(
             x, mesh=mesh, sharding_plan=var)
         launches = CM.ns_chain.launches
         CM.ns_chain.launches = 0
+        TS.counts.reset()
         kp = lct.Corex(use_pallas="always", **kw).fit(x)
-        assert launches > 0 and launches == CM.ns_chain.launches
+        # the mesh fit runs its loop uncaptured: the plain fit's launches
+        # less those of its captured chunks' masked evaluations
+        assert launches > 0 and launches == \
+            CM.ns_chain.launches - TS.counts.masked_launches
         assert torch.equal(k.ws, kp.ws) and k.tc == kp.tc
     finally:
         dist.destroy_process_group()
@@ -829,3 +834,134 @@ def test_f64_card_fit_step_matched_with_oracle(strategy, optimizer):
     assert np.abs(c.tcs - o.tcs).max() < 1e-8
     assert np.abs(c.mis - o.mis).max() < 1e-8
     assert np.allclose(c.history["TC"], o.history["TC"], rtol=1e-8, atol=0)
+
+
+# --- the solver's loop as a captured CUDA graph ---------------------------
+
+def _loop_problem(lanes, m, matmul_dtype, optimizer, p=512,
+                  overlap=False, use_pallas="always"):
+    """(objective, W0, config) of a fit at n = 2,000 on the card, through
+    the chain kernel unless `use_pallas` says otherwise (the overlap
+    objective has none)."""
+    from linearcorex_tpu_torch.models import corex as TCX
+    from linearcorex_tpu_torch.parallel.restarts import init_restarts
+    x = _block_data(n=2000, p=p, m=8, seed=3)
+    kw = dict(discourage_overlap=False) if overlap else dict(
+        optimizer=optimizer, use_pallas=use_pallas)
+    model = lct.Corex(n_hidden=m, seed=0, max_iter=150,
+                      matmul_dtype=matmul_dtype, **kw)
+    data, cfg, strategy = model._prepare_fit(x)
+    w0 = model._resolve_w0(None) if not lanes else init_restarts(
+        lanes[0], m, p, 0, torch.float32, "cuda")
+    return TCX._make_obj_grad(data, cfg, strategy), w0, cfg
+
+
+def _loop_run(obj_grad, w0, cfg, **kw):
+    """fit_core's result, the loop counts and the kernel's launches of one
+    fit."""
+    TS.counts.reset()
+    CM.ns_chain.launches = CM.ns_chain.lane_launches = 0
+    with TM.full_f32_matmul():
+        ws, diag = TS.fit_core(obj_grad, w0, cfg, **kw)
+    torch.cuda.synchronize()
+    return ws, diag, TS.counts.as_dict(), (CM.ns_chain.launches,
+                                           CM.ns_chain.lane_launches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("optimizer", ["fixed_point", "momentum"])
+@pytest.mark.parametrize("matmul_dtype", ["float32", "bfloat16", "int8"])
+@pytest.mark.parametrize("lanes,m", [((), 32), ((4,), 8), ((4,), 32)])
+def test_captured_loop_is_bitwise_the_uncaptured_loop(lanes, m,
+                                                      matmul_dtype,
+                                                      optimizer):
+    """The fit replays a captured graph of K bodies (the path's choice)
+    and ends with the uncaptured loop's bits in W and every diagnostic; the kernel's counters count each replay, so the captured
+    fit launches it once per evaluation run, masked ones included."""
+    _need_cuda()
+    obj_grad, w0, cfg = _loop_problem(lanes, m, matmul_dtype, optimizer)
+    ws_u, d_u, c_u, l_u = _loop_run(obj_grad, w0, cfg, _capture=False)
+    ws_c, d_c, c_c, l_c = _loop_run(obj_grad, w0, cfg)
+    # (4 fixed-point lanes at m <= 128 take cuSOLVER's batched LU)
+    assert c_c["captured_fits"] == 1
+    assert c_u["captured_fits"] == 0 and c_u["masked"] == 0
+    assert torch.equal(ws_c, ws_u)
+    for f in d_u._fields:
+        a, b = getattr(d_c, f), getattr(d_u, f)
+        assert a.device == b.device and a.dtype == b.dtype, f
+        assert torch.equal(a, b), f
+    assert c_c["iterations"] == c_u["iterations"]
+    k = 1 if lanes else 0
+    assert l_u[1 - k] == 0 and l_c[1 - k] == 0
+    assert l_u[k] == c_u["first_evaluations"] + c_u["iterations"]
+    assert l_c[k] == c_c["first_evaluations"] + c_c["bodies"]
+    assert l_c[k] - l_u[k] == c_c["masked"] == c_c["masked_launches"]
+    stages = d_u.iters_per_stage.shape[-1]
+    assert c_c["host_reads"] <= -(-c_c["iterations"] // TS.CHUNK) \
+        + stages + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("overlap,lanes", [(False, (16,)), (True, ()),
+                                           (True, (3,))])
+def test_captured_loop_bitwise_off_the_kernel(overlap, lanes):
+    """The plain chain's graph (use_pallas='never') at the selection's m
+    = 8 over 16 lanes, and the overlap objective (cuSOLVER's Cholesky for
+    one lane, captured; MAGMA's batched solve for lanes, not)."""
+    _need_cuda()
+    obj_grad, w0, cfg = _loop_problem(lanes, 8, "float32", "fixed_point",
+                                      overlap=overlap, use_pallas="never")
+    ws_u, d_u, c_u, _ = _loop_run(obj_grad, w0, cfg, _capture=False)
+    ws_c, d_c, c_c, _ = _loop_run(obj_grad, w0, cfg)
+    assert c_c["captured_fits"] == (0 if overlap and lanes else 1)
+    assert torch.equal(ws_c, ws_u)
+    for f in d_u._fields:
+        assert torch.equal(getattr(d_c, f), getattr(d_u, f)), f
+
+
+@pytest.mark.cuda
+def test_a_failed_capture_raises_by_name():
+    """An objective that reads the device cannot be captured: the fit
+    raises, naming itself, and does not run on uncaptured; the card
+    serves the next fit."""
+    _need_cuda()
+    obj_grad, w0, cfg = _loop_problem((), 32, "float32", "fixed_point")
+
+    def reads(ws, eps):
+        f, g, tc = obj_grad(ws, eps)
+        float(f)
+        return f, g, tc
+    with pytest.raises(RuntimeError, match=r"capturing the accept/reject "
+                       r"loop of the \(m, p\) = \(32, 512\) fit"):
+        TS.fit_core(reads, w0, cfg)
+    ws_u, d_u, _, _ = _loop_run(obj_grad, w0, cfg, _capture=False)
+    ws_c, d_c, _, _ = _loop_run(obj_grad, w0, cfg)
+    assert torch.equal(ws_c, ws_u)
+
+
+@pytest.mark.cuda
+def test_mesh_fit_and_corex_fit_choose_their_loop(tmp_path):
+    """Corex.fit on the card replays a graph, a world-of-one mesh fit runs
+    the same body uncaptured, and both give the plain samples fit's
+    bits."""
+    _need_cuda()
+    import torch.distributed as dist
+
+    from linearcorex_tpu_torch.parallel import sharding as S
+    from linearcorex_tpu_torch.parallel.launch import init_local_group
+    x = _block_data(n=2000, p=256, m=8, seed=1)
+    kw = dict(n_hidden=8, seed=0, max_iter=150, optimizer="fixed_point")
+    TS.counts.reset()
+    plain = lct.Corex(moment_strategy="samples", **kw).fit(x)
+    assert TS.counts.fits == TS.counts.captured_fits == 1
+    init_local_group("nccl", 0, 1, str(tmp_path / "rendezvous"),
+                     timeout=120.0)
+    try:
+        TS.counts.reset()
+        meshed = lct.Corex(**kw).fit(x, mesh=S.make_mesh())
+        assert TS.counts.fits == 1 and TS.counts.captured_fits == 0
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(meshed.ws.cpu().numpy(), plain.ws.cpu().numpy())
+    assert torch.equal(meshed.diagnostics.iters_per_stage,
+                       plain.diagnostics.iters_per_stage)

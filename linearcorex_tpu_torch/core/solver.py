@@ -31,7 +31,12 @@ fixed-point lanes at most m, the overlap objective's lanes) runs the
 same body uncaptured with K = 1, the evaluations of the fits before this
 design. A failed capture or replay raises by name; nothing
 falls back. The chunk's masked evaluations (bodies run after the flag
-fell) are counted in `counts`, apart from the iterations.
+fell) are counted in `counts`, apart from the iterations. Under a
+recording profiler the solve, each stage, the stage's first evaluation
+and the capture are named ranges of the trace (`lcx.solve`, `lcx.stage`,
+`lcx.stage.first`, `lcx.capture`; `utils.profiling.span`); a chunk's
+replay and read show as the runtime's own `cudaGraphLaunch` and
+`cudaEventSynchronize`.
 
 Step sizes and tolerances keep the JAX package's rounding: they live in
 the compute dtype, every update one operation of that dtype (`_host_dtype`
@@ -68,6 +73,7 @@ import torch
 from linearcorex_tpu_torch.config import CorexConfig
 from linearcorex_tpu_torch.ops import cuda_moments
 from linearcorex_tpu_torch.parallel.collectives import all_reduce
+from linearcorex_tpu_torch.utils.profiling import span
 
 ObjGrad = Callable[[torch.Tensor, torch.Tensor],
                    Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
@@ -321,25 +327,26 @@ class _Loop:
         self.static = c
         self.flag = torch.zeros((), dtype=torch.int32, device=c.ws.device)
         graph = torch.cuda.CUDAGraph()
-        t0 = time.perf_counter()
-        with cuda_moments.counting_capture() as tally:
-            graph.capture_begin()
-            try:
-                out = self._bodies(c)
-                for dst, src in zip(c, out):
-                    if dst is not None:
-                        dst.copy_(src)
-                self.flag.copy_(out.run.sum(dtype=torch.int32))
-            except BaseException as e:
+        with span("lcx.capture"):
+            t0 = time.perf_counter()
+            with cuda_moments.counting_capture() as tally:
+                graph.capture_begin()
                 try:
-                    graph.capture_end()
-                except Exception:
-                    pass
-                raise RuntimeError(
-                    f"fit_core: capturing the accept/reject loop of "
-                    f"{self.name} into a CUDA graph failed: {e}") from e
-            graph.capture_end()
-        counts.capture_seconds += time.perf_counter() - t0
+                    out = self._bodies(c)
+                    for dst, src in zip(c, out):
+                        if dst is not None:
+                            dst.copy_(src)
+                    self.flag.copy_(out.run.sum(dtype=torch.int32))
+                except BaseException as e:
+                    try:
+                        graph.capture_end()
+                    except Exception:
+                        pass
+                    raise RuntimeError(
+                        f"fit_core: capturing the accept/reject loop of "
+                        f"{self.name} into a CUDA graph failed: {e}") from e
+                graph.capture_end()
+            counts.capture_seconds += time.perf_counter() - t0
         self.graph, self.tally = graph, tally
 
     def run_stage(self, c: _Carry):
@@ -396,99 +403,108 @@ def fit_core(obj_grad: ObjGrad, w0: torch.Tensor, cfg: CorexConfig,
     `parallel.sharding` and `parallel.restarts`), the body runs
     uncaptured with K = 1. `_capture` and `_chunk` override the path's
     choice and K (the tests hold every choice to the same bits)."""
-    dev, dt = w0.device, w0.dtype
-    npdt, rnd = _host_dtype(dt)
-    captured = _capture
-    if captured is None:
-        captured = dev.type == "cuda" and not _mesh \
-            and _without_magma(cfg, w0)
-    if captured and dev.type != "cuda":
-        raise ValueError(f"fit_core: a captured loop needs a CUDA device, "
-                         f"got {dev}")
-    k = _chunk or (CHUNK if captured else 1)
-    rules = _Rules.of(cfg, dt, w_axes)
-    schedule = rnd(np.asarray(cfg.anneal_schedule(), dtype=npdt))
-    tols = rnd(np.asarray(cfg.tol_schedule(), dtype=npdt))
-    lanes = w0.shape[:-2]
-    n_stages = len(schedule)
-    counts.fits += 1
-    counts.captured_fits += int(captured)
-    side = _side_stream(dev) if captured else None
-    if side is not None:
-        side.wait_stream(torch.cuda.current_stream(dev))
-    with torch.cuda.stream(side) if side is not None else \
-            contextlib.nullcontext():
-        eps_all = torch.as_tensor(schedule, dtype=dt, device=dev)
-        tol_all = torch.as_tensor(tols, dtype=dt, device=dev)
-        eps, tol = eps_all[0].clone(), tol_all[0].clone()
-        width = cfg.max_iter if cfg.record_history else 0
-        cols = torch.arange(width, dtype=torch.int32, device=dev)
-        out_it = torch.zeros(lanes + (n_stages,), dtype=torch.int32,
-                             device=dev)
-        out_tc, out_delta, out_f = (
-            torch.zeros(lanes + (n_stages,), dtype=dt, device=dev)
-            for _ in range(3))
-        out_hist = torch.zeros(lanes + (n_stages, width), dtype=dt,
-                               device=dev)
-        loop = _Loop(obj_grad, rules, cols, eps, tol, k, captured,
-                     _describe(w0, cfg))
-        chunks = []
-        ws = w0
-        try:
-            for s in range(n_stages):
-                eps.copy_(eps_all[s])
-                tol.copy_(tol_all[s])
-                f, g, tc = obj_grad(ws, eps)
-                counts.stages += 1
-                counts.first_evaluations += 1
-                runs = (0 < rules.max_iter and np.inf >= tols[s]
-                        and rules.lr_init >= rules.lr_min)
-                c = _Carry(
-                    ws=ws, f=f, g=g,
-                    v=torch.zeros_like(ws) if rules.momentum else None,
-                    tc=tc, lr=torch.full(lanes, rules.lr_init, dtype=dt,
-                                         device=dev),
-                    it=torch.zeros(lanes, dtype=torch.int32, device=dev),
-                    delta=torch.full(lanes, math.inf, dtype=dt, device=dev),
-                    hist=torch.zeros(lanes + (width,), dtype=dt, device=dev),
-                    run=torch.full(lanes, runs, dtype=torch.bool,
-                                   device=dev))
-                n = 0
-                if runs:
-                    c, n = loop.run_stage(c)
-                chunks.append(n)
-                ws = c.ws
-                out_it[..., s] = c.it
-                out_tc[..., s] = c.tc
-                out_delta[..., s] = c.delta
-                out_f[..., s] = c.f
-                out_hist[..., s, :] = c.hist
-        finally:
-            loop.release()
-        # the one read of the diagnostics
-        counts.host_reads += 1
-        iters = out_it.cpu()
-    if side is not None:
-        torch.cuda.current_stream(dev).wait_stream(side)
-    lockstep = iters.numpy().reshape(-1, n_stages).max(axis=0).tolist()
-    counts.bodies += k * sum(chunks)
-    counts.iterations += sum(lockstep)
-    masked = sum(k * n - i for n, i in zip(chunks, lockstep))
-    counts.masked += masked
-    if loop.tally is not None:
-        # every body of a chunk launches the kernel alike
-        counts.masked_launches += masked * sum(loop.tally.values()) // k
-    eps_schedule = eps_all if not lanes else \
-        eps_all.expand(lanes + (n_stages,)).contiguous()
-    diag = FitDiagnostics(iters_per_stage=iters, tc_per_stage=out_tc,
-                          delta_per_stage=out_delta,
-                          objective_per_stage=out_f, tc_history=out_hist,
-                          eps_schedule=eps_schedule)
-    if side is not None:
-        current = torch.cuda.current_stream(dev)
-        for t in (ws, *diag[1:]):
-            t.record_stream(current)
-    return ws, diag
+    with span("lcx.solve"):
+        dev, dt = w0.device, w0.dtype
+        npdt, rnd = _host_dtype(dt)
+        captured = _capture
+        if captured is None:
+            captured = dev.type == "cuda" and not _mesh \
+                and _without_magma(cfg, w0)
+        if captured and dev.type != "cuda":
+            raise ValueError(f"fit_core: a captured loop needs a CUDA "
+                             f"device, got {dev}")
+        k = _chunk or (CHUNK if captured else 1)
+        rules = _Rules.of(cfg, dt, w_axes)
+        schedule = rnd(np.asarray(cfg.anneal_schedule(), dtype=npdt))
+        tols = rnd(np.asarray(cfg.tol_schedule(), dtype=npdt))
+        lanes = w0.shape[:-2]
+        n_stages = len(schedule)
+        counts.fits += 1
+        counts.captured_fits += int(captured)
+        side = _side_stream(dev) if captured else None
+        if side is not None:
+            side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side) if side is not None else \
+                contextlib.nullcontext():
+            eps_all = torch.as_tensor(schedule, dtype=dt, device=dev)
+            tol_all = torch.as_tensor(tols, dtype=dt, device=dev)
+            eps, tol = eps_all[0].clone(), tol_all[0].clone()
+            width = cfg.max_iter if cfg.record_history else 0
+            cols = torch.arange(width, dtype=torch.int32, device=dev)
+            out_it = torch.zeros(lanes + (n_stages,), dtype=torch.int32,
+                                 device=dev)
+            out_tc, out_delta, out_f = (
+                torch.zeros(lanes + (n_stages,), dtype=dt, device=dev)
+                for _ in range(3))
+            out_hist = torch.zeros(lanes + (n_stages, width), dtype=dt,
+                                   device=dev)
+            loop = _Loop(obj_grad, rules, cols, eps, tol, k, captured,
+                         _describe(w0, cfg))
+            chunks = []
+            ws = w0
+            try:
+                for s in range(n_stages):
+                    with span("lcx.stage"):
+                        eps.copy_(eps_all[s])
+                        tol.copy_(tol_all[s])
+                        with span("lcx.stage.first"):
+                            f, g, tc = obj_grad(ws, eps)
+                        counts.stages += 1
+                        counts.first_evaluations += 1
+                        runs = (0 < rules.max_iter and np.inf >= tols[s]
+                                and rules.lr_init >= rules.lr_min)
+                        c = _Carry(
+                            ws=ws, f=f, g=g,
+                            v=torch.zeros_like(ws) if rules.momentum
+                            else None,
+                            tc=tc, lr=torch.full(lanes, rules.lr_init,
+                                                 dtype=dt, device=dev),
+                            it=torch.zeros(lanes, dtype=torch.int32,
+                                           device=dev),
+                            delta=torch.full(lanes, math.inf, dtype=dt,
+                                             device=dev),
+                            hist=torch.zeros(lanes + (width,), dtype=dt,
+                                             device=dev),
+                            run=torch.full(lanes, runs, dtype=torch.bool,
+                                           device=dev))
+                        n = 0
+                        if runs:
+                            c, n = loop.run_stage(c)
+                        chunks.append(n)
+                        ws = c.ws
+                        out_it[..., s] = c.it
+                        out_tc[..., s] = c.tc
+                        out_delta[..., s] = c.delta
+                        out_f[..., s] = c.f
+                        out_hist[..., s, :] = c.hist
+            finally:
+                loop.release()
+            # the one read of the diagnostics
+            counts.host_reads += 1
+            iters = out_it.cpu()
+        if side is not None:
+            torch.cuda.current_stream(dev).wait_stream(side)
+        lockstep = iters.numpy().reshape(-1, n_stages).max(
+            axis=0).tolist()
+        counts.bodies += k * sum(chunks)
+        counts.iterations += sum(lockstep)
+        masked = sum(k * n - i for n, i in zip(chunks, lockstep))
+        counts.masked += masked
+        if loop.tally is not None:
+            # every body of a chunk launches the kernel alike
+            counts.masked_launches += masked * sum(loop.tally.values()) // k
+        eps_schedule = eps_all if not lanes else \
+            eps_all.expand(lanes + (n_stages,)).contiguous()
+        diag = FitDiagnostics(iters_per_stage=iters, tc_per_stage=out_tc,
+                              delta_per_stage=out_delta,
+                              objective_per_stage=out_f,
+                              tc_history=out_hist,
+                              eps_schedule=eps_schedule)
+        if side is not None:
+            current = torch.cuda.current_stream(dev)
+            for t in (ws, *diag[1:]):
+                t.record_stream(current)
+        return ws, diag
 
 
 def sort_by_tcs(ws: torch.Tensor, tcs: torch.Tensor):

@@ -88,6 +88,7 @@ from linearcorex_tpu_torch.parallel.collectives import all_gather_rows
 from linearcorex_tpu_torch.parallel.sharding import DATA_AXIS, ShardingPlan
 from linearcorex_tpu_torch.utils.compile_cache import (ensure_compile_cache,
                                                        warmup_fit)
+from linearcorex_tpu_torch.utils.profiling import span
 
 __all__ = ["Corex", "NotFittedError", "resolve_config", "resolve_optimizer",
            "pick_fit_strategy", "resolve_restart_mesh_layout",
@@ -364,17 +365,18 @@ def final_moments(data, ws, cfg: CorexConfig, strategy: str, model=None):
     rank: under a split (`ws` this rank's block, as in `_fit_program`)
     the split moment functions run and W and the moments are gathered
     before the sort."""
-    sp = M.Split(M.var_of(data), model)
-    zero = torch.zeros((), dtype=ws.dtype, device=ws.device)
-    if strategy == "gram":
-        c_xy = M.cxy_gram(data, ws, zero)
-    else:
-        c_xy = M.cxy_samples(data, ws, zero)
-    mom = M.moments_from_cxy(ws, c_xy, cfg.y_scale, cfg.rho_clip, *sp)
-    if sp.w_axes:
-        ws, mom = sp.whole_w(ws), M.whole_moments(mom, *sp)
-    ws_sorted, order = sort_by_tcs(ws, mom.tcs)
-    return ws_sorted, M.permute_moments(mom, order)
+    with span("lcx.final", sync=True):
+        sp = M.Split(M.var_of(data), model)
+        zero = torch.zeros((), dtype=ws.dtype, device=ws.device)
+        if strategy == "gram":
+            c_xy = M.cxy_gram(data, ws, zero)
+        else:
+            c_xy = M.cxy_samples(data, ws, zero)
+        mom = M.moments_from_cxy(ws, c_xy, cfg.y_scale, cfg.rho_clip, *sp)
+        if sp.w_axes:
+            ws, mom = sp.whole_w(ws), M.whole_moments(mom, *sp)
+        ws_sorted, order = sort_by_tcs(ws, mom.tcs)
+        return ws_sorted, M.permute_moments(mom, order)
 
 
 def _spectral_init(data, omega, strategy: str, matmul_dtype: str):
@@ -384,14 +386,15 @@ def _spectral_init(data, omega, strategy: str, matmul_dtype: str):
     solver's own operator (any operand mode), then a thin QR. An operand
     split over `var` applies Σ to this rank's rows of Ω, and the (p, m)
     product is gathered whole over `var` for the QR."""
-    apply = M._apply_sigma_t(data, matmul_dtype == "bfloat16",
-                             strategy == "gram", omega.dtype)
-    sp = M.Split(var=M.var_of(data))
-    M.check_factorizable(omega.dtype, "QR")
-    with M.full_f32_matmul():
-        q, _ = torch.linalg.qr(sp.all_vars(apply(sp.my_vars(omega)))
-                               .to(omega.dtype))
-    return q.T.contiguous()
+    with span("lcx.init.spectral", sync=True):
+        apply = M._apply_sigma_t(data, matmul_dtype == "bfloat16",
+                                 strategy == "gram", omega.dtype)
+        sp = M.Split(var=M.var_of(data))
+        M.check_factorizable(omega.dtype, "QR")
+        with M.full_f32_matmul():
+            q, _ = torch.linalg.qr(sp.all_vars(apply(sp.my_vars(omega)))
+                                   .to(omega.dtype))
+        return q.T.contiguous()
 
 
 def prepare_operand(xp, strategy: str, matmul_dtype: str,
@@ -405,14 +408,15 @@ def prepare_operand(xp, strategy: str, matmul_dtype: str,
     sums the ranks' partial products and comes out replicated, or as this
     rank's row block of Σ when the columns are split over `var`; the
     samples operand stays sharded."""
-    data = M.compute_gram(xp) if strategy == "gram" else xp
-    if matmul_dtype == "bfloat16":
-        if isinstance(data, M.ShardedSamples):
-            return data._replace(local=data.local.to(torch.bfloat16))
-        return data.to(torch.bfloat16)
-    if matmul_dtype == "int8":
-        return M.quantize_samples(data, check_overflow=check_overflow)
-    return data
+    with span("lcx.prepare.operand", sync=True):
+        data = M.compute_gram(xp) if strategy == "gram" else xp
+        if matmul_dtype == "bfloat16":
+            if isinstance(data, M.ShardedSamples):
+                return data._replace(local=data.local.to(torch.bfloat16))
+            return data.to(torch.bfloat16)
+        if matmul_dtype == "int8":
+            return M.quantize_samples(data, check_overflow=check_overflow)
+        return data
 
 
 def check_restart_sweep_supported(cfg: CorexConfig, strategy: str) -> None:
@@ -878,14 +882,15 @@ class Corex:
         """N(0, 1/sqrt(p)) init. Seeded: NumPy's RandomState, so a seed
         gives the same W0 as the JAX package and the float64 oracle.
         Unseeded: drawn on the device from fresh entropy."""
-        if self._fit_seed is None:
-            gen = torch.Generator(device=self._device)
-            gen.seed()
-            return torch.randn((self.m, p), generator=gen, dtype=self._dt,
-                               device=self._device) / float(np.sqrt(p))
-        rng = np.random.RandomState(self._fit_seed)
-        w = rng.normal(loc=0.0, scale=1.0 / np.sqrt(p), size=(self.m, p))
-        return torch.as_tensor(w, dtype=self._dt, device=self._device)
+        with span("lcx.init.draw", sync=True):
+            if self._fit_seed is None:
+                gen = torch.Generator(device=self._device)
+                gen.seed()
+                return torch.randn((self.m, p), generator=gen, dtype=self._dt,
+                                   device=self._device) / float(np.sqrt(p))
+            rng = np.random.RandomState(self._fit_seed)
+            w = rng.normal(loc=0.0, scale=1.0 / np.sqrt(p), size=(self.m, p))
+            return torch.as_tensor(w, dtype=self._dt, device=self._device)
 
     @staticmethod
     def _coerce_2d(x, what="x"):
@@ -975,13 +980,15 @@ class Corex:
         from linearcorex_tpu_torch.utils import native
         if not native.available():
             return None
-        xh = np.asarray(x, dtype=np.float64)
-        if pre.missing_values is not None:
-            xh = native.mean_impute(xh, pre.missing_values)
-        std = xh.std(0)
-        theta = P.Theta(mean=self._as_tensor(xh.mean(0)),
-                        std=self._as_tensor(np.where(std < 1e-10, 1.0, std)))
-        return self._as_tensor(native.empirical_gaussianize(xh)), theta
+        with span("lcx.prepare.standardize", sync=True):
+            xh = np.asarray(x, dtype=np.float64)
+            if pre.missing_values is not None:
+                xh = native.mean_impute(xh, pre.missing_values)
+            std = xh.std(0)
+            theta = P.Theta(
+                mean=self._as_tensor(xh.mean(0)),
+                std=self._as_tensor(np.where(std < 1e-10, 1.0, std)))
+            return self._as_tensor(native.empirical_gaussianize(xh)), theta
 
     def _prepare_fit(self, x, resolve=True, plan=None, mesh=None,
                      check_overflow=True):
@@ -1008,89 +1015,95 @@ class Corex:
         native host route of 'empirical' is skipped under a mesh.
         check_overflow=False leaves out the int8 wrap guard (a warmup's
         synthetic operand)."""
-        self._partial_acc = None
-        self._fit_kind = input_kind(x)
-        x = self._validate_input(x)
-        self.n_samples, self.nv = x.shape
-        if self.n_samples < 2:
-            raise ValueError(f"need at least 2 samples to fit, got "
-                             f"n_samples={self.n_samples}")
-        if self.nv < self.m:
-            warnings.warn(
-                f"n_hidden={self.m} exceeds n_variables={self.nv}; "
-                f"surplus factors will converge to zero TC")
-        strategy = pick_fit_strategy(self.config, self.n_samples, self.nv,
-                                     plan)
-        if resolve:
-            cfg = resolve_config(self.config, self.nv, self._device,
-                                 n_samples=self.n_samples)
-        else:
-            # the optimizer policy depends on the data shapes only:
-            # resolved here, where n is still known
-            cfg = resolve_optimizer(self.config, self.nv, self.n_samples)
-        self.resolved_optimizer_ = cfg.optimizer
-        pre = self.pre_config
-        if mesh is not None:
-            # raw_x=True: the rows of the RAW X are split per x_spec for
-            # every strategy, so the sample-axis check applies to gram too
-            S.validate_plan_shapes(plan, strategy, mesh, self.n_samples,
-                                   self.nv, self.m, raw_x=True)
-            axes = S.sample_axes(mesh, plan)
-            var = S.var_axis(mesh, plan)
-            xp, theta = P.fit_preprocess(
-                S.shard_block(x, axes, var, self._device, self._dt),
-                pre.gaussianize, pre.missing_values, axes)
-            whole = M.Split(var=var).all_vars
-            self.theta = P.Theta(mean=whole(theta.mean),
-                                 std=whole(theta.std))
-            if axes or var is not None:
-                xp = M.ShardedSamples(local=xp, n_total=self.n_samples,
-                                      axes=axes, p_total=self.nv, var=var)
+        with span("lcx.prepare", sync=True):
+            self._partial_acc = None
+            self._fit_kind = input_kind(x)
+            x = self._validate_input(x)
+            self.n_samples, self.nv = x.shape
+            if self.n_samples < 2:
+                raise ValueError(f"need at least 2 samples to fit, got "
+                                 f"n_samples={self.n_samples}")
+            if self.nv < self.m:
+                warnings.warn(
+                    f"n_hidden={self.m} exceeds n_variables={self.nv}; "
+                    f"surplus factors will converge to zero TC")
+            strategy = pick_fit_strategy(self.config, self.n_samples, self.nv,
+                                         plan)
+            if resolve:
+                cfg = resolve_config(self.config, self.nv, self._device,
+                                     n_samples=self.n_samples)
+            else:
+                # the optimizer policy depends on the data shapes only:
+                # resolved here, where n is still known
+                cfg = resolve_optimizer(self.config, self.nv, self.n_samples)
+            self.resolved_optimizer_ = cfg.optimizer
+            pre = self.pre_config
+            if mesh is not None:
+                # raw_x=True: the rows of the RAW X are split per x_spec for
+                # every strategy, so the sample-axis check applies to gram too
+                S.validate_plan_shapes(plan, strategy, mesh, self.n_samples,
+                                       self.nv, self.m, raw_x=True)
+                axes = S.sample_axes(mesh, plan)
+                var = S.var_axis(mesh, plan)
+                block = S.shard_block(x, axes, var, self._device, self._dt)
+                with span("lcx.prepare.standardize", sync=True):
+                    xp, theta = P.fit_preprocess(
+                        block, pre.gaussianize, pre.missing_values, axes)
+                    whole = M.Split(var=var).all_vars
+                    self.theta = P.Theta(mean=whole(theta.mean),
+                                         std=whole(theta.std))
+                if axes or var is not None:
+                    xp = M.ShardedSamples(local=xp, n_total=self.n_samples,
+                                          axes=axes, p_total=self.nv, var=var)
+                return prepare_operand(xp, strategy, cfg.matmul_dtype,
+                                       check_overflow), cfg, strategy
+            host = self._host_preprocess(x)
+            if host is not None:
+                xp, self.theta = host
+            else:
+                x = self._as_tensor(x)
+                with span("lcx.prepare.standardize", sync=True):
+                    xp, self.theta = P.fit_preprocess(
+                        x, pre.gaussianize, pre.missing_values)
             return prepare_operand(xp, strategy, cfg.matmul_dtype,
                                    check_overflow), cfg, strategy
-        host = self._host_preprocess(x)
-        if host is not None:
-            xp, self.theta = host
-        else:
-            xp, self.theta = P.fit_preprocess(
-                self._as_tensor(x), pre.gaussianize, pre.missing_values)
-        return prepare_operand(xp, strategy, cfg.matmul_dtype,
-                               check_overflow), cfg, strategy
 
     def _resolve_w0(self, init_ws, data=None, strategy=None) -> torch.Tensor:
         """Initial weights: explicit init_ws > shape-matching pretrained
         weights > a fresh init per config.init ('random', or 'spectral',
         which needs the prepared operand, so fit passes (data,
         strategy))."""
-        if init_ws is not None:
-            w0 = self._as_tensor(init_ws)
-            if tuple(w0.shape) != (self.m, self.nv):
-                raise ValueError(
-                    f"init_ws shape {tuple(w0.shape)} does not match "
-                    f"(n_hidden, n_variables)=({self.m}, {self.nv})")
-            return w0
-        pre = self._pretrained_ws if self._pretrained_ws is not None \
-            else self.pretrained_weights
-        if pre is not None:
-            pre = self._as_tensor(pre)
-            if tuple(pre.shape) == (self.m, self.nv):
-                return pre
-        if self.config.init == "spectral" and data is not None:
-            return _spectral_init(data, self._omega(self._fit_seed), strategy,
-                                  self.config.matmul_dtype)
-        return self._init_ws(self.nv)
+        with span("lcx.init", sync=True):
+            if init_ws is not None:
+                w0 = self._as_tensor(init_ws)
+                if tuple(w0.shape) != (self.m, self.nv):
+                    raise ValueError(
+                        f"init_ws shape {tuple(w0.shape)} does not match "
+                        f"(n_hidden, n_variables)=({self.m}, {self.nv})")
+                return w0
+            pre = self._pretrained_ws if self._pretrained_ws is not None \
+                else self.pretrained_weights
+            if pre is not None:
+                pre = self._as_tensor(pre)
+                if tuple(pre.shape) == (self.m, self.nv):
+                    return pre
+            if self.config.init == "spectral" and data is not None:
+                return _spectral_init(data, self._omega(self._fit_seed),
+                                      strategy, self.config.matmul_dtype)
+            return self._init_ws(self.nv)
 
     def _omega(self, seed):
         """The spectral init's random (p, m) block Ω. It follows the
         random init's seeding: seeded → NumPy RandomState(seed) (the JAX
         package's Ω), unseeded → the device generator, fresh entropy."""
-        if seed is None:
-            gen = torch.Generator(device=self._device)
-            gen.seed()
-            return torch.randn((self.nv, self.m), generator=gen,
-                               dtype=self._dt, device=self._device)
-        return self._as_tensor(np.random.RandomState(seed).normal(
-            size=(self.nv, self.m)))
+        with span("lcx.init.draw", sync=True):
+            if seed is None:
+                gen = torch.Generator(device=self._device)
+                gen.seed()
+                return torch.randn((self.nv, self.m), generator=gen,
+                                   dtype=self._dt, device=self._device)
+            return self._as_tensor(np.random.RandomState(seed).normal(
+                size=(self.nv, self.m)))
 
     def _validated_restarts(self, init_ws) -> int:
         """Validate `n_restarts` at first use (stored verbatim by __init__
@@ -1151,11 +1164,14 @@ class Corex:
         with R.lane_oom_guidance(restarts, self.m, self.nv,
                                  torch.empty((), dtype=self._dt)
                                  .element_size()):
-            if cfg.init == "spectral":
-                w0 = self._spectral_restart_inits(data, strategy, restarts)
-            else:
-                w0 = R.init_restarts(restarts, self.m, self.nv,
-                                     self._fit_seed, self._dt, self._device)
+            with span("lcx.init", sync=True):
+                if cfg.init == "spectral":
+                    w0 = self._spectral_restart_inits(data, strategy,
+                                                      restarts)
+                else:
+                    w0 = R.init_restarts(restarts, self.m, self.nv,
+                                         self._fit_seed, self._dt,
+                                         self._device)
             ws_b, mom_b, diag_b = run(data, w0, cfg, strategy,
                                       self.n_samples)
             self.ws, self.moments, self.diagnostics, best = \
@@ -1211,68 +1227,69 @@ class Corex:
         """The fit after `fit`'s check of `y`; `warmup_fit` runs it on a
         copy of the model with check_overflow=False (no wrap guard on its
         synthetic operand)."""
-        restarts = self._validated_restarts(init_ws)
-        check_precision(self.config)
-        plan = None
-        if mesh is not None:
-            plan = sharding_plan or ShardingPlan()
+        with span("lcx.fit"):
+            restarts = self._validated_restarts(init_ws)
+            check_precision(self.config)
+            plan = None
+            if mesh is not None:
+                plan = sharding_plan or ShardingPlan()
+                if restarts > 1:
+                    check_restart_plan(plan)
+                S.check_mesh(mesh, self._device)
+                self._mesh_seed = S.shared_seed(self.seed, mesh, self._device)
+                if restarts > 1:
+                    strategy_plan, data_axis = resolve_restart_mesh_layout(
+                        mesh, plan)
+                    xsh = getattr(x, "shape", None)
+                    if self.config.stage_subsample < 1.0 and xsh is not None \
+                            and len(xsh) == 2:
+                        # raise before the rows move; _fit_restart_sweep
+                        # checks again on the validated shapes
+                        check_restart_sweep_supported(
+                            self.config,
+                            pick_fit_strategy(self.config, xsh[0], xsh[1],
+                                              strategy_plan))
+                    data, cfg, strategy = self._prepare_fit(
+                        x, resolve=False, plan=strategy_plan,
+                        mesh=mesh if strategy_plan is not None else None,
+                        check_overflow=check_overflow)
+                    if strategy != "samples":
+                        # an explicit moment_strategy='gram' under a sample
+                        # plan runs replicated (pick_fit_strategy warned)
+                        data_axis = None
+                    return self._fit_restart_sweep(
+                        data, cfg, strategy, restarts, mesh=mesh,
+                        data_axis=data_axis,
+                        serving_plan=plan if data_axis is not None else None)
+            data, cfg, strategy = self._prepare_fit(
+                x, resolve=mesh is None, plan=plan, mesh=mesh,
+                check_overflow=check_overflow)
             if restarts > 1:
-                check_restart_plan(plan)
-            S.check_mesh(mesh, self._device)
-            self._mesh_seed = S.shared_seed(self.seed, mesh, self._device)
-            if restarts > 1:
-                strategy_plan, data_axis = resolve_restart_mesh_layout(
-                    mesh, plan)
-                xsh = getattr(x, "shape", None)
-                if self.config.stage_subsample < 1.0 and xsh is not None \
-                        and len(xsh) == 2:
-                    # raise before the rows move; _fit_restart_sweep
-                    # checks again on the validated shapes
-                    check_restart_sweep_supported(
-                        self.config,
-                        pick_fit_strategy(self.config, xsh[0], xsh[1],
-                                          strategy_plan))
-                data, cfg, strategy = self._prepare_fit(
-                    x, resolve=False, plan=strategy_plan,
-                    mesh=mesh if strategy_plan is not None else None,
-                    check_overflow=check_overflow)
-                if strategy != "samples":
-                    # an explicit moment_strategy='gram' under a sample
-                    # plan runs replicated (pick_fit_strategy warned)
-                    data_axis = None
-                return self._fit_restart_sweep(
-                    data, cfg, strategy, restarts, mesh=mesh,
-                    data_axis=data_axis,
-                    serving_plan=plan if data_axis is not None else None)
-        data, cfg, strategy = self._prepare_fit(
-            x, resolve=mesh is None, plan=plan, mesh=mesh,
-            check_overflow=check_overflow)
-        if restarts > 1:
-            return self._fit_restart_sweep(data, cfg, strategy, restarts)
-        w0 = self._resolve_w0(init_ws, data=data, strategy=strategy)
-        if mesh is not None:
-            if stage_subsample_active(cfg, strategy):
-                raise ValueError(
-                    "stage_subsample < 1 is not supported under "
-                    "fit(mesh=...) yet: a stride slice of the sharded "
-                    "sample axis would leave the ranks with unequal row "
-                    "blocks mid-fit. Run the mesh fit with "
-                    "stage_subsample=1, or fit single-device.")
-            # check_overflow=False: _prepare_fit guarded this operand
-            self.ws, self.moments, self.diagnostics = S.fit_sharded(
-                data, w0, cfg, mesh, plan, strategy,
-                n_samples=self.n_samples, check_overflow=False)
-            self._serving_plan = plan  # mesh serving calls default to it
-        else:
-            fit = _fit_staged_subsample if stage_subsample_active(
-                cfg, strategy) else _fit_program
-            self.ws, self.moments, self.diagnostics = fit(data, w0, cfg,
-                                                          strategy)
-            self._serving_plan = None  # state is single-device again
-        self.best_restart_ = 0
-        if self.verbose:
-            self._print_verbose()
-        return self
+                return self._fit_restart_sweep(data, cfg, strategy, restarts)
+            w0 = self._resolve_w0(init_ws, data=data, strategy=strategy)
+            if mesh is not None:
+                if stage_subsample_active(cfg, strategy):
+                    raise ValueError(
+                        "stage_subsample < 1 is not supported under "
+                        "fit(mesh=...) yet: a stride slice of the sharded "
+                        "sample axis would leave the ranks with unequal row "
+                        "blocks mid-fit. Run the mesh fit with "
+                        "stage_subsample=1, or fit single-device.")
+                # check_overflow=False: _prepare_fit guarded this operand
+                self.ws, self.moments, self.diagnostics = S.fit_sharded(
+                    data, w0, cfg, mesh, plan, strategy,
+                    n_samples=self.n_samples, check_overflow=False)
+                self._serving_plan = plan  # mesh serving calls default to it
+            else:
+                fit = _fit_staged_subsample if stage_subsample_active(
+                    cfg, strategy) else _fit_program
+                self.ws, self.moments, self.diagnostics = fit(data, w0, cfg,
+                                                              strategy)
+                self._serving_plan = None  # state is single-device again
+            self.best_restart_ = 0
+            if self.verbose:
+                self._print_verbose()
+            return self
 
     def _print_verbose(self):
         """One TC line every `update_iter` iterations plus a per-stage

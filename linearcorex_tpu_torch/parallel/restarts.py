@@ -30,6 +30,7 @@ from linearcorex_tpu_torch.config import CorexConfig
 from linearcorex_tpu_torch.ops import moments as M
 from linearcorex_tpu_torch.parallel.collectives import all_gather_lanes
 from linearcorex_tpu_torch.utils.compile_cache import ensure_compile_cache
+from linearcorex_tpu_torch.utils.profiling import span
 
 __all__ = ["init_restarts", "fit_restarts", "fit_restarts_sharded",
            "best_restart", "restart_batch_runner", "padded_lanes",
@@ -63,13 +64,14 @@ def init_restarts(n_restarts: int, m: int, p: int, seed: Optional[int],
     sweep). seed=None draws a fresh base (`seed_base`). On the card by
     default, as `Corex` and `pick_n_hidden` are; pass device="cpu" for
     the CPU."""
-    base = seed_base(seed)
-    w0 = np.stack([
-        np.random.RandomState(base + r).normal(
-            loc=0.0, scale=1.0 / np.sqrt(p), size=(m, p))
-        for r in range(n_restarts)
-    ])
-    return torch.as_tensor(w0, dtype=dtype, device=device)
+    with span("lcx.init.draw", sync=True):
+        base = seed_base(seed)
+        w0 = np.stack([
+            np.random.RandomState(base + r).normal(
+                loc=0.0, scale=1.0 / np.sqrt(p), size=(m, p))
+            for r in range(n_restarts)
+        ])
+        return torch.as_tensor(w0, dtype=dtype, device=device)
 
 
 def fit_restarts(data, w0_batch: torch.Tensor, cfg: CorexConfig,

@@ -4,6 +4,28 @@ Port of `linearcorex_tpu/utils/profiling.py`:
 - `trace(logdir)` wraps `torch.profiler.profile` (CPU and CUDA
   activities), so a fit can be captured without code changes; the Chrome
   trace lands under `logdir`;
+- `span(name)` marks a part of a fit as a named range of that trace, on
+  the profiler's clock beside the kernels. While no profiler records, a
+  span costs one check and nothing else. A fit marks these ranges
+  (those marked "sync" wait for the device before they close, so that
+  they hold their own device work and the phases of a traced fit do not
+  overlap):
+
+      lcx.fit                   Corex._fit: the whole fit (warmup's too)
+        lcx.prepare             checks, the move, preprocessing, operand (sync)
+          lcx.prepare.standardize  theta, imputation, standardisation (sync)
+          lcx.prepare.operand   the Gram, bf16 cast or int8 operand (sync)
+        lcx.init                the start W0, every restart lane's (sync)
+          lcx.init.draw         the seeded draw and its copy (sync)
+          lcx.init.spectral     the spectral init's Σ·Ω and QR (sync)
+        lcx.solve               core.solver.fit_core, once per solve
+          lcx.stage             one anneal stage
+            lcx.stage.first     the stage's uncaptured first evaluation
+            lcx.capture         the chunk's CUDA graph capture
+        lcx.final               the moments at eps = 0 and the sort (sync)
+
+  `partial_fit` and the moment-input fits mark lcx.init, lcx.solve and
+  lcx.final only.
 - `fit_report` turns FitDiagnostics into a readable per-stage summary
   (the diagnostics' tensors are read once, here, by explicit request);
 - `iteration_rate` measures steady-state solver throughput with the
@@ -29,9 +51,9 @@ from typing import Optional
 import numpy as np
 import torch
 
-from linearcorex_tpu_torch.core.solver import host_numpy
+__all__ = ["trace", "span", "fit_report", "iteration_rate"]
 
-__all__ = ["trace", "fit_report", "iteration_rate"]
+_OFF = contextlib.nullcontext()
 
 
 @contextlib.contextmanager
@@ -60,7 +82,29 @@ def trace(logdir: str):
             logdir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
 
 
+def span(name: str, sync: bool = False):
+    """A context that marks the enclosed work as the range `name` of a
+    `torch.profiler` trace (`trace`'s, or any profiler's), on the clock
+    of the trace's kernels. While no profiler records it does nothing but
+    that one check: no range, no event, no synchronize. With `sync`, a
+    recorded span waits for the CUDA device (once CUDA is in use) before
+    it closes, so that it holds its own device work; a span left by an
+    exception closes without waiting."""
+    if not torch.autograd._profiler_enabled():
+        return _OFF
+    return _recorded(name, sync)
+
+
+@contextlib.contextmanager
+def _recorded(name: str, sync: bool):
+    with torch.profiler.record_function(name):
+        yield
+        if sync and torch.cuda.is_initialized():
+            torch.cuda.synchronize()
+
+
 def _to_numpy(a) -> np.ndarray:
+    from linearcorex_tpu_torch.core.solver import host_numpy
     return host_numpy(a.detach()) if isinstance(a, torch.Tensor) \
         else np.asarray(a)
 

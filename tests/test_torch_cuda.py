@@ -965,3 +965,65 @@ def test_mesh_fit_and_corex_fit_choose_their_loop(tmp_path):
     assert np.array_equal(meshed.ws.cpu().numpy(), plain.ws.cpu().numpy())
     assert torch.equal(meshed.diagnostics.iters_per_stage,
                        plain.diagnostics.iters_per_stage)
+
+
+# --- the fit's spans on the profiler's clock ------------------------------
+
+@pytest.mark.cuda
+def test_spans_and_kernels_share_one_clock(tmp_path):
+    """A default fit on the card under `utils.profiling.trace`: every
+    kernel launched inside `lcx.prepare.operand` (the Gram's products)
+    starts on the device inside that range, every kernel of a graph
+    replay (launched by `cudaGraphLaunch`) inside `lcx.solve`, and the
+    loop's capture lies in its first stage. The profiled fit gives the
+    unprofiled fit's bits."""
+    _need_cuda()
+    import json
+
+    from linearcorex_tpu_torch.utils import profiling
+    x = torch.as_tensor(_block_data(n=2000, p=512, m=8, seed=3),
+                        dtype=torch.float32, device="cuda")
+    kw = dict(n_hidden=16, seed=0, max_iter=150)
+    lct.Corex(**kw).warmup(*x.shape)
+    plain = lct.Corex(**kw).fit(x)
+    with profiling.trace(str(tmp_path)):
+        traced = lct.Corex(**kw).fit(x)
+    for a, b in zip([plain.ws, *plain.moments, *plain.diagnostics],
+                    [traced.ws, *traced.moments, *traced.diagnostics]):
+        assert torch.equal(a, b)
+
+    path, = tmp_path.glob("*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+
+    def ranges(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") == "user_annotation" and e["name"] == name]
+
+    def within(t, spans):
+        # the trace's microseconds are rounded to the nanosecond
+        return any(a - 0.01 <= t <= b + 0.01 for a, b in spans)
+
+    launches = {e["args"]["correlation"]: e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+
+    def launch(kernel):
+        return launches.get(kernel["args"].get("correlation"), {})
+
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    assert kernels, "the trace holds no kernel"
+    operand, solve = ranges("lcx.prepare.operand"), ranges("lcx.solve")
+    stages, capture = ranges("lcx.stage"), ranges("lcx.capture")
+    assert len(operand) == len(solve) == len(capture) == 1
+    assert within(capture[0][0], stages[:1]) and \
+        within(capture[0][1], stages[:1])
+    gram = [k for k in kernels
+            if within(launch(k).get("ts", -1.0), operand)]
+    replayed = [k for k in kernels
+                if launch(k).get("name") == "cudaGraphLaunch"]
+    assert gram and any("gemm" in k["name"].lower() for k in gram)
+    assert replayed
+    for k in gram:
+        assert within(k["ts"], operand), k["name"]
+    for k in replayed:
+        assert within(k["ts"], solve), k["name"]

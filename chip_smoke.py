@@ -271,14 +271,16 @@ non-zero and does not print the final line.
              alone after it; then in float32 and int8 (b) a new process
              on that directory: the first and second fits; (c) a new
              process on another empty directory: Corex.warmup(n, p)
-             (nvcc within it), then the first and second fits. (d)
+             (nvcc and g++ within it), then the first and second fits. (d)
              load_corex of (b)'s float32 model, then
              warmup_serving(model, 4096): the first transform/score of
              4096 rows against the second. (e) warmup_sweep, then
              pick_n_hidden at the selection size (max_iter=200 a stage, a
              cut depth), first against second.
-             Gates: (a) builds the kernel inside its first fit and (b)
-             builds nothing; (c)'s warmup builds and launches the kernel,
+             Gates: (a) builds the kernel and the host library (the
+             seeded draw of the start) inside its first fit and (b)
+             builds nothing; (c)'s warmup builds both and launches the
+             kernel,
              nothing is built and no file appears after it, and its first
              fit is (b)'s first fit bit for bit (W, TC, iterations per
              stage), its save_corex file (b)'s array for array; (e)'s
@@ -3217,7 +3219,9 @@ def warmup_child(spec):
                  iters=model.diagnostics.iters_per_stage.cpu().numpy())
         lct.save_corex(model, spec["model"])
         if spec.get("host"):
-            _, out["host_build"] = timed(build.build_host)
+            # g++ alone: the fit built the host library already
+            _, out["host_build"] = timed(lambda: build.build_host(
+                force=True))
     elif kind == "serve":
         x, out["data"] = timed(lambda: block_data(
             WARMUP_ROWS, P, BLOCKS, DATA_SEED + 3, dev))
@@ -3292,7 +3296,12 @@ def warmup_phase(card):
         return rec
 
     def compiled(rec):
-        return [c["what"] for c in rec["compiles"]]
+        return sorted(c["what"] for c in rec["compiles"])
+
+    # what a cold seeded fit builds, and a warmup: the chain kernel, and
+    # the host library of the start's seeded draw (`ops.seeded`)
+    from linearcorex_tpu_torch.utils import build
+    builds = sorted(["ns_chain.cu", " + ".join(build.HOST_SOURCES)])
 
     def seconds(rec, what):
         return sum(c["seconds"] for c in rec["compiles"]
@@ -3314,11 +3323,11 @@ def warmup_phase(card):
                 a = child(dict(base, warm=False, fits=1, host=True,
                                bits=path["a"] + ".bits.npz",
                                model=path["a"] + ".npz"), cold)
-                check(compiled(a["fits"][0]) == ["ns_chain.cu"]
+                check(compiled(a["fits"][0]) == builds
                       and a["fits"][0]["launches"] > 0,
                       f"{dt} (a): the cold first fit built "
-                      f"{compiled(a['fits'][0])}, not the kernel alone, "
-                      f"or did not run it")
+                      f"{compiled(a['fits'][0])}, not {builds}, "
+                      f"or did not run the kernel")
             b = child(dict(base, warm=False, fits=2,
                            bits=path["b"] + ".bits.npz",
                            model=path["b"] + ".npz"), cold)
@@ -3328,8 +3337,9 @@ def warmup_phase(card):
             models[dt] = path["b"] + ".npz"
             check(all(not f["compiles"] for f in b["fits"]),
                   f"{dt} (b): a fit on the warm directory built something")
-            check(compiled(c["warmup"]) == ["ns_chain.cu"],
-                  f"{dt} (c): the warmup built {compiled(c['warmup'])}")
+            check(compiled(c["warmup"]) == builds,
+                  f"{dt} (c): the warmup built {compiled(c['warmup'])}, "
+                  f"not {builds}")
             check(c["warmup"]["launches"] > 0
                   and c["warmup"]["lane_launches"] == 0,
                   f"{dt} (c): the warmup did not launch the kernel")

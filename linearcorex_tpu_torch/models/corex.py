@@ -81,6 +81,7 @@ from linearcorex_tpu_torch.core.solver import (FitDiagnostics, fit_core,
                                                host_numpy, sort_by_tcs)
 from linearcorex_tpu_torch.ops import moments as M
 from linearcorex_tpu_torch.ops import preprocessing as P
+from linearcorex_tpu_torch.ops import seeded
 from linearcorex_tpu_torch.ops.cuda_moments import chain_supported
 from linearcorex_tpu_torch.parallel import restarts as R
 from linearcorex_tpu_torch.parallel import sharding as S
@@ -799,6 +800,9 @@ class Corex:
     _serving_plan = None
     # the seed of an UNSEEDED mesh fit, shared by its ranks while it runs
     _mesh_seed = None
+    # the seeded draw of the start a running fit began at its entry
+    # (`_begin_draw`), until its start takes it (`_seeded_start`)
+    _draw = None
     # the kind of the input of the last fit: the fitted attributes' kind
     # (`as_kind`). A model built from a file or from NumPy arrays is 'numpy'.
     _fit_kind = "numpy"
@@ -879,18 +883,74 @@ class Corex:
         return resolve_device(self.device)
 
     def _init_ws(self, p: int) -> torch.Tensor:
-        """N(0, 1/sqrt(p)) init. Seeded: NumPy's RandomState, so a seed
-        gives the same W0 as the JAX package and the float64 oracle.
-        Unseeded: drawn on the device from fresh entropy."""
+        """N(0, 1/sqrt(p)) init. Seeded: NumPy's RandomState stream, so a
+        seed gives the same W0 as the JAX package and the float64 oracle
+        (`_seeded_start`). Unseeded: drawn on the device from fresh
+        entropy."""
+        if self._fit_seed is not None:
+            return self._seeded_start("random", p)
         with span("lcx.init.draw", sync=True):
-            if self._fit_seed is None:
-                gen = torch.Generator(device=self._device)
-                gen.seed()
-                return torch.randn((self.m, p), generator=gen, dtype=self._dt,
-                                   device=self._device) / float(np.sqrt(p))
-            rng = np.random.RandomState(self._fit_seed)
-            w = rng.normal(loc=0.0, scale=1.0 / np.sqrt(p), size=(self.m, p))
-            return torch.as_tensor(w, dtype=self._dt, device=self._device)
+            gen = torch.Generator(device=self._device)
+            gen.seed()
+            return torch.randn((self.m, p), generator=gen, dtype=self._dt,
+                               device=self._device) / float(np.sqrt(p))
+
+    def _start_draw_spec(self, init: str, p: int, restarts: int = 1):
+        """The seeded draw of a fresh start of p variables, as (seeds,
+        shape, scale) of NumPy's `RandomState(seed).normal(0, scale,
+        shape)`: Ω (p, m) at scale 1 for init='spectral', W0 (m, p) at
+        1/sqrt(p) for 'random'; one seed, or a sweep's lane seeds
+        (`parallel.restarts.restart_seeds`) for a stack of one stream a
+        lane. The one place that says what a start draws: the draw begun
+        at a fit's entry (`_begin_draw`) and the one its start takes
+        (`_seeded_start`) both come from here."""
+        seeds = self._fit_seed if restarts == 1 \
+            else R.restart_seeds(self._fit_seed, restarts)
+        if init == "spectral":
+            return seeds, (p, self.m), 1.0
+        return seeds, (self.m, p), 1.0 / np.sqrt(p)
+
+    def _seeded_start(self, init: str, p: int, restarts: int = 1):
+        """The start's seeded draw (`_start_draw_spec`), bit for bit, in
+        the model dtype on the model device (`ops.seeded`): the draw this
+        fit began at its entry, else drawn now."""
+        with span("lcx.init.draw", sync=True):
+            draw, self._draw = self._draw, None
+            if draw is None:
+                seeds, shape, scale = self._start_draw_spec(init, p,
+                                                            restarts)
+                draw = seeded.Draw(seeds, shape, 0.0, scale, self._dt,
+                                   self._device)
+            return draw.result()
+
+    @contextlib.contextmanager
+    def _begin_draw(self, x, init_ws, restarts: int):
+        """Begin the seeded draw this fit's start will take
+        (`_start_draw_spec`), on a host thread (`ops.seeded.Draw`), so
+        that it runs beside the fit's preparation; wait for it and drop it
+        at the end if the start did not take it (a fit that raised). No
+        draw begins for `init_ws`, pretrained weights of the fitted shape
+        or an unseeded fit, whose starts draw nothing seeded, nor where
+        `x` has no 2-D shape with columns yet: the start then draws when
+        it runs."""
+        shape = getattr(x, "shape", None)
+        if init_ws is None and self._fit_seed is not None \
+                and shape is not None and len(shape) == 2 and shape[1] > 0:
+            p = int(shape[1])
+            pre = self._pretrained_ws if self._pretrained_ws is not None \
+                else self.pretrained_weights
+            if restarts > 1 or pre is None or \
+                    tuple(np.shape(pre)) != (self.m, p):
+                seeds, size, scale = self._start_draw_spec(
+                    self.config.init, p, restarts)
+                self._draw = seeded.Draw(seeds, size, 0.0, scale, self._dt,
+                                         self._device)
+        try:
+            yield
+        finally:
+            draw, self._draw = self._draw, None
+            if draw is not None:
+                draw.close()
 
     @staticmethod
     def _coerce_2d(x, what="x"):
@@ -1094,16 +1154,16 @@ class Corex:
 
     def _omega(self, seed):
         """The spectral init's random (p, m) block Ω. It follows the
-        random init's seeding: seeded → NumPy RandomState(seed) (the JAX
-        package's Ω), unseeded → the device generator, fresh entropy."""
+        random init's seeding: seeded → NumPy's RandomState(seed) stream
+        (the JAX package's Ω; `_seeded_start`), unseeded → the device
+        generator, fresh entropy."""
+        if seed is not None:
+            return self._seeded_start("spectral", self.nv)
         with span("lcx.init.draw", sync=True):
-            if seed is None:
-                gen = torch.Generator(device=self._device)
-                gen.seed()
-                return torch.randn((self.nv, self.m), generator=gen,
-                                   dtype=self._dt, device=self._device)
-            return self._as_tensor(np.random.RandomState(seed).normal(
-                size=(self.nv, self.m)))
+            gen = torch.Generator(device=self._device)
+            gen.seed()
+            return torch.randn((self.nv, self.m), generator=gen,
+                               dtype=self._dt, device=self._device)
 
     def _validated_restarts(self, init_ws) -> int:
         """Validate `n_restarts` at first use (stored verbatim by __init__
@@ -1131,16 +1191,20 @@ class Corex:
         r) (seeded) or from the device generator seeded with base + r
         (unseeded), so lane 0 of a seeded sweep is the plain spectral fit's
         W0 and preset='throughput' composes with restarts."""
-        base = R.seed_base(self._fit_seed)
+        if self._fit_seed is not None:
+            omegas = self._seeded_start("spectral", self.nv, restarts)
+        else:
+            seeds = R.restart_seeds(None, restarts)
         outs = []
         for r in range(restarts):
             if self._fit_seed is None:
                 gen = torch.Generator(device=self._device).manual_seed(
-                    base + r)
+                    seeds[r])
                 omega = torch.randn((self.nv, self.m), generator=gen,
                                     dtype=self._dt, device=self._device)
             else:
-                omega = self._omega(base + r)
+                # a lane's Ω in a block of its own, as the plain fit's is
+                omega = omegas[r].clone()
             outs.append(_spectral_init(data, omega, strategy,
                                        self.config.matmul_dtype))
         return torch.stack(outs)
@@ -1168,10 +1232,12 @@ class Corex:
                 if cfg.init == "spectral":
                     w0 = self._spectral_restart_inits(data, strategy,
                                                       restarts)
+                elif self._fit_seed is not None:
+                    # R.init_restarts' stack, begun at the fit's entry
+                    w0 = self._seeded_start("random", self.nv, restarts)
                 else:
-                    w0 = R.init_restarts(restarts, self.m, self.nv,
-                                         self._fit_seed, self._dt,
-                                         self._device)
+                    w0 = R.init_restarts(restarts, self.m, self.nv, None,
+                                         self._dt, self._device)
             ws_b, mom_b, diag_b = run(data, w0, cfg, strategy,
                                       self.n_samples)
             self.ws, self.moments, self.diagnostics, best = \
@@ -1226,7 +1292,8 @@ class Corex:
     def _fit(self, x, init_ws, mesh, sharding_plan, check_overflow=True):
         """The fit after `fit`'s check of `y`; `warmup_fit` runs it on a
         copy of the model with check_overflow=False (no wrap guard on its
-        synthetic operand)."""
+        synthetic operand). The seeded draw of the start begins here,
+        before the preparation (`_begin_draw`)."""
         with span("lcx.fit"):
             restarts = self._validated_restarts(init_ws)
             check_precision(self.config)
@@ -1237,59 +1304,64 @@ class Corex:
                     check_restart_plan(plan)
                 S.check_mesh(mesh, self._device)
                 self._mesh_seed = S.shared_seed(self.seed, mesh, self._device)
-                if restarts > 1:
-                    strategy_plan, data_axis = resolve_restart_mesh_layout(
-                        mesh, plan)
-                    xsh = getattr(x, "shape", None)
-                    if self.config.stage_subsample < 1.0 and xsh is not None \
-                            and len(xsh) == 2:
-                        # raise before the rows move; _fit_restart_sweep
-                        # checks again on the validated shapes
-                        check_restart_sweep_supported(
-                            self.config,
-                            pick_fit_strategy(self.config, xsh[0], xsh[1],
-                                              strategy_plan))
-                    data, cfg, strategy = self._prepare_fit(
-                        x, resolve=False, plan=strategy_plan,
-                        mesh=mesh if strategy_plan is not None else None,
-                        check_overflow=check_overflow)
-                    if strategy != "samples":
-                        # an explicit moment_strategy='gram' under a sample
-                        # plan runs replicated (pick_fit_strategy warned)
-                        data_axis = None
-                    return self._fit_restart_sweep(
-                        data, cfg, strategy, restarts, mesh=mesh,
-                        data_axis=data_axis,
-                        serving_plan=plan if data_axis is not None else None)
+            with self._begin_draw(x, init_ws, restarts):
+                return self._fit_from(x, init_ws, mesh, plan, restarts,
+                                      check_overflow)
+
+    def _fit_from(self, x, init_ws, mesh, plan, restarts, check_overflow):
+        """`_fit` after its checks and the mesh's shared seed."""
+        if mesh is not None and restarts > 1:
+            strategy_plan, data_axis = resolve_restart_mesh_layout(mesh, plan)
+            xsh = getattr(x, "shape", None)
+            if self.config.stage_subsample < 1.0 and xsh is not None \
+                    and len(xsh) == 2:
+                # raise before the rows move; _fit_restart_sweep checks
+                # again on the validated shapes
+                check_restart_sweep_supported(
+                    self.config,
+                    pick_fit_strategy(self.config, xsh[0], xsh[1],
+                                      strategy_plan))
             data, cfg, strategy = self._prepare_fit(
-                x, resolve=mesh is None, plan=plan, mesh=mesh,
+                x, resolve=False, plan=strategy_plan,
+                mesh=mesh if strategy_plan is not None else None,
                 check_overflow=check_overflow)
-            if restarts > 1:
-                return self._fit_restart_sweep(data, cfg, strategy, restarts)
-            w0 = self._resolve_w0(init_ws, data=data, strategy=strategy)
-            if mesh is not None:
-                if stage_subsample_active(cfg, strategy):
-                    raise ValueError(
-                        "stage_subsample < 1 is not supported under "
-                        "fit(mesh=...) yet: a stride slice of the sharded "
-                        "sample axis would leave the ranks with unequal row "
-                        "blocks mid-fit. Run the mesh fit with "
-                        "stage_subsample=1, or fit single-device.")
-                # check_overflow=False: _prepare_fit guarded this operand
-                self.ws, self.moments, self.diagnostics = S.fit_sharded(
-                    data, w0, cfg, mesh, plan, strategy,
-                    n_samples=self.n_samples, check_overflow=False)
-                self._serving_plan = plan  # mesh serving calls default to it
-            else:
-                fit = _fit_staged_subsample if stage_subsample_active(
-                    cfg, strategy) else _fit_program
-                self.ws, self.moments, self.diagnostics = fit(data, w0, cfg,
-                                                              strategy)
-                self._serving_plan = None  # state is single-device again
-            self.best_restart_ = 0
-            if self.verbose:
-                self._print_verbose()
-            return self
+            if strategy != "samples":
+                # an explicit moment_strategy='gram' under a sample plan
+                # runs replicated (pick_fit_strategy warned)
+                data_axis = None
+            return self._fit_restart_sweep(
+                data, cfg, strategy, restarts, mesh=mesh,
+                data_axis=data_axis,
+                serving_plan=plan if data_axis is not None else None)
+        data, cfg, strategy = self._prepare_fit(
+            x, resolve=mesh is None, plan=plan, mesh=mesh,
+            check_overflow=check_overflow)
+        if restarts > 1:
+            return self._fit_restart_sweep(data, cfg, strategy, restarts)
+        w0 = self._resolve_w0(init_ws, data=data, strategy=strategy)
+        if mesh is not None:
+            if stage_subsample_active(cfg, strategy):
+                raise ValueError(
+                    "stage_subsample < 1 is not supported under "
+                    "fit(mesh=...) yet: a stride slice of the sharded "
+                    "sample axis would leave the ranks with unequal row "
+                    "blocks mid-fit. Run the mesh fit with "
+                    "stage_subsample=1, or fit single-device.")
+            # check_overflow=False: _prepare_fit guarded this operand
+            self.ws, self.moments, self.diagnostics = S.fit_sharded(
+                data, w0, cfg, mesh, plan, strategy,
+                n_samples=self.n_samples, check_overflow=False)
+            self._serving_plan = plan  # mesh serving calls default to it
+        else:
+            fit = _fit_staged_subsample if stage_subsample_active(
+                cfg, strategy) else _fit_program
+            self.ws, self.moments, self.diagnostics = fit(data, w0, cfg,
+                                                          strategy)
+            self._serving_plan = None  # state is single-device again
+        self.best_restart_ = 0
+        if self.verbose:
+            self._print_verbose()
+        return self
 
     def _print_verbose(self):
         """One TC line every `update_iter` iterations plus a per-stage

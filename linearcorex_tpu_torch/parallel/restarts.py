@@ -28,6 +28,7 @@ import torch
 
 from linearcorex_tpu_torch.config import CorexConfig
 from linearcorex_tpu_torch.ops import moments as M
+from linearcorex_tpu_torch.ops.seeded import seeded_normal
 from linearcorex_tpu_torch.parallel.collectives import all_gather_lanes
 from linearcorex_tpu_torch.utils.compile_cache import ensure_compile_cache
 from linearcorex_tpu_torch.utils.profiling import span
@@ -56,22 +57,25 @@ def seed_base(seed: Optional[int]) -> int:
     return seed
 
 
+def restart_seeds(seed: Optional[int], n_restarts: int) -> list:
+    """The seeds of a sweep's lanes, base + r (`seed_base`): lane 0's is
+    the plain fit's seed."""
+    base = seed_base(seed)
+    return [base + r for r in range(n_restarts)]
+
+
 def init_restarts(n_restarts: int, m: int, p: int, seed: Optional[int],
                   dtype=torch.float32, device="cuda") -> torch.Tensor:
     """Stack of seeded N(0, 1/sqrt(p)) inits, (n_restarts, m, p): restart
-    r uses NumPy RandomState(base + r), so restart 0 of a seeded sweep is
-    the W0 of a plain `Corex(seed=seed)` fit (and of the JAX package's
+    r uses NumPy's RandomState(base + r) stream, bit for bit (drawn by
+    `ops.seeded` on the host's threads), so restart 0 of a seeded sweep
+    is the W0 of a plain `Corex(seed=seed)` fit (and of the JAX package's
     sweep). seed=None draws a fresh base (`seed_base`). On the card by
     default, as `Corex` and `pick_n_hidden` are; pass device="cpu" for
     the CPU."""
     with span("lcx.init.draw", sync=True):
-        base = seed_base(seed)
-        w0 = np.stack([
-            np.random.RandomState(base + r).normal(
-                loc=0.0, scale=1.0 / np.sqrt(p), size=(m, p))
-            for r in range(n_restarts)
-        ])
-        return torch.as_tensor(w0, dtype=dtype, device=device)
+        return seeded_normal(restart_seeds(seed, n_restarts), (m, p), 0.0,
+                             1.0 / np.sqrt(p), dtype, device)
 
 
 def fit_restarts(data, w0_batch: torch.Tensor, cfg: CorexConfig,

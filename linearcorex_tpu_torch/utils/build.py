@@ -16,11 +16,14 @@ process (`utils.compile_cache` decides, at build time).
 
 The host sources `csrc/gaussianize.cpp` and `csrc/loader.cpp` (the native
 preprocessing kernels and the CSV block reader behind `utils.native`)
-are built the same way into one library, with the flags of the repo's
-`native/Makefile`:
+and `csrc/seeded_normal.cpp` (the seeded draws behind `ops.seeded`) are
+built the same way into one library, with the flags of the repo's
+`native/Makefile`, no contraction into fused multiply-adds (the seeded
+draws are NumPy's bit for bit) and threads:
 
-    g++ -O3 -fPIC -shared -std=c++17 -o _build/liblcx_host_<hash>.so
-        gaussianize.cpp loader.cpp
+    g++ -O3 -fPIC -shared -std=c++17 -ffp-contract=off -pthread
+        -o _build/liblcx_host_<hash>.so
+        gaussianize.cpp loader.cpp seeded_normal.cpp
 
 Nothing here runs at import time: the CPU tests import every module of
 the package on machines with no nvcc. Every compile this process runs is
@@ -45,8 +48,9 @@ CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_SOURCES = ("gaussianize.cpp", "loader.cpp")
-HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+HOST_SOURCES = ("gaussianize.cpp", "loader.cpp", "seeded_normal.cpp")
+HOST_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17", "-ffp-contract=off",
+              "-pthread")
 # {'what', 'path', 'seconds'} of every compile this process has run
 COMPILES: list = []
 

@@ -164,11 +164,17 @@ def warmup_fit(model, n_samples: int, n_variables: int, mesh=None,
     as it makes the fit, and the sharded programs run (their collectives
     are counted in `collective_counts()`).
 
+    The host library is loaded (built by g++ at first use) and checked
+    for the seeded draws of the start (`ops.seeded.load`), seeded model
+    or not, so that no build and no load lands in a timed fit.
+
     The model stays as it was (unfitted if it was), and no random stream
     of the caller moves. There is no fallback: without nvcc on a card the
     warmup raises as the fit would."""
     from linearcorex_tpu_torch.core.solver import host_numpy
+    from linearcorex_tpu_torch.ops import seeded
     ensure_compile_cache()
+    seeded.load()
     shadow = _shadow(model, max_iter=1, verbose=False)
     dev = shadow._device
     x = torch.randn((int(n_samples), int(n_variables)),

@@ -5,16 +5,20 @@ layer (empirical gaussianization with average-tie ranks and the AS241
 inverse normal; sentinel mean-imputation) and `csrc/loader.cpp` the
 streaming CSV block reader, each behind a plain C interface. They are the
 port's own copies of the repo's `native/*.cpp` (a test holds the copies
-byte-identical). `utils.build.build_host` compiles them with g++ at first
-use into `linearcorex_tpu_torch/_build/`; the library under `native/` is
-never loaded and `make -C native` is never run.
+byte-identical). `csrc/seeded_normal.cpp` is the port's own, with no
+copy under `native/`: NumPy's legacy seeded normal stream bit for bit on
+the host's threads (`lcx_seeded_normal`, called by `ops.seeded`).
+`utils.build.build_host` compiles the three with g++ at first use into
+`linearcorex_tpu_torch/_build/`; the library under `native/` is never
+loaded and `make -C native` is never run.
 
-Without g++ `available()` is False and callers take the torch or
+Without g++ `available()` is False and callers take the torch, NumPy or
 pure-Python paths, whose results are the same (held to double precision
-by `tests/test_torch_native.py`). A g++ that is there and fails to build
-the sources raises instead: a broken build is not taken for a missing
-compiler. This is host code only: it
-never stands in for the device or for a kernel.
+by `tests/test_torch_native.py`, bitwise for the seeded draws by
+`tests/test_torch_seeded_normal.py`). A g++ that is there and fails to
+build the sources raises instead: a broken build is not taken for a
+missing compiler. This is host code only: it never stands in for the
+device or for a kernel.
 """
 
 from __future__ import annotations
@@ -56,6 +60,10 @@ def get_lib() -> Optional[ctypes.CDLL]:
     lib.lcx_csv_read_block.argtypes = [ctypes.c_void_p, i64, dp]
     lib.lcx_csv_read_block.restype = i64
     lib.lcx_csv_close.argtypes = [ctypes.c_void_p]
+    lib.lcx_seeded_normal.argtypes = [
+        ctypes.c_void_p, i64, i64, ctypes.c_double, ctypes.c_double,
+        ctypes.c_int32, ctypes.c_void_p, i64]
+    lib.lcx_seeded_normal.restype = None
     _lib = lib
     return _lib
 

@@ -16,7 +16,8 @@ Port of `linearcorex_tpu/utils/profiling.py`:
           lcx.prepare.standardize  theta, imputation, standardisation (sync)
           lcx.prepare.operand   the Gram, bf16 cast or int8 operand (sync)
         lcx.init                the start W0, every restart lane's (sync)
-          lcx.init.draw         the seeded draw and its copy (sync)
+          lcx.init.draw         the seeded draw (or the wait for the one
+                                begun at lcx.fit's entry) and its copy (sync)
           lcx.init.spectral     the spectral init's Σ·Ω and QR (sync)
         lcx.solve               core.solver.fit_core, once per solve
           lcx.stage             one anneal stage
@@ -25,7 +26,9 @@ Port of `linearcorex_tpu/utils/profiling.py`:
         lcx.final               the moments at eps = 0 and the sort (sync)
 
   `partial_fit` and the moment-input fits mark lcx.init, lcx.solve and
-  lcx.final only.
+  lcx.final only. A seeded draw large enough to run on a thread of its
+  own (`ops.seeded.Draw`) marks lcx.draw.host on that thread, which a
+  profiler records only where it records every thread.
 - `fit_report` turns FitDiagnostics into a readable per-stage summary
   (the diagnostics' tensors are read once, here, by explicit request);
 - `iteration_rate` measures steady-state solver throughput with the

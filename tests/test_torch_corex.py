@@ -310,7 +310,8 @@ def test_not_fitted_and_surface(data):
 
 PORT_MODULES = ["config", "core.solver", "models.corex", "models.selection",
                 "models.stacked", "ops.cuda_moments", "ops.moments",
-                "ops.preprocessing", "oracle.oracle", "parallel.collectives",
+                "ops.preprocessing", "ops.seeded", "oracle.oracle",
+                "parallel.collectives",
                 "parallel.launch", "parallel.restarts", "parallel.sharding",
                 "utils.build", "utils.checkpoint", "utils.compile_cache",
                 "utils.interop", "utils.native",

@@ -681,14 +681,20 @@ def test_matmul_precision_high_runs_tf32_on_the_card():
 @pytest.mark.cuda
 def test_warmup_builds_so_that_the_fit_builds_nothing(tmp_path, monkeypatch):
     """On a fresh LINEARCOREX_TPU_CACHE_DIR, Corex.warmup builds the kernel
-    there and launches it; the fit after it builds nothing, adds no file,
-    runs the kernel, and is the unwarmed fit bit for bit."""
+    and the host library of the seeded start there and launches the
+    kernel; the fit after it builds nothing, adds no file, runs the
+    kernel, and is the unwarmed fit bit for bit."""
     _need_cuda()
+    from linearcorex_tpu_torch.ops import seeded
     from linearcorex_tpu_torch.utils import compile_cache as CC
+    from linearcorex_tpu_torch.utils import native
     monkeypatch.setattr(CC, "_cache_dir", None)
     monkeypatch.setenv("LINEARCOREX_TPU_CACHE_DIR", str(tmp_path))
     monkeypatch.delenv("LINEARCOREX_TPU_NO_COMPILE_CACHE", raising=False)
     CM._kernel.cache_clear()       # load the library from the new directory
+    # and the host library, whatever an earlier test loaded
+    monkeypatch.setattr(native, "_lib", None)
+    monkeypatch.setattr(seeded, "_lib", None)
     try:
         gen = torch.Generator(device="cuda").manual_seed(0)
         x = torch.randn((2000, 512), generator=gen, device="cuda")
@@ -697,14 +703,16 @@ def test_warmup_builds_so_that_the_fit_builds_nothing(tmp_path, monkeypatch):
         model = lct.Corex(**kw).warmup(*x.shape)
         torch.cuda.synchronize()
         assert model.ws is None
-        assert [c["what"] for c in build.COMPILES[done:]] == ["ns_chain.cu"]
-        assert build.COMPILES[-1]["path"].startswith(str(tmp_path))
+        assert sorted(c["what"] for c in build.COMPILES[done:]) == sorted(
+            ["ns_chain.cu", " + ".join(build.HOST_SOURCES)])
+        assert all(c["path"].startswith(str(tmp_path))
+                   for c in build.COMPILES[done:])
         assert CM.ns_chain.launches > launches
         files = sorted(tmp_path.iterdir())
         launches = CM.ns_chain.launches
         model.fit(x)
         torch.cuda.synchronize()
-        assert len(build.COMPILES) == done + 1
+        assert len(build.COMPILES) == done + 2
         assert sorted(tmp_path.iterdir()) == files
         assert CM.ns_chain.launches > launches
         plain = lct.Corex(**kw).fit(x)

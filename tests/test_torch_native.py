@@ -2,7 +2,8 @@
 built by g++ from `linearcorex_tpu_torch/csrc/*.cpp`) against scipy and
 numpy to 1e-12, against the JAX package's `utils.native` bitwise, and the
 pure-Python text reader against the native one. The two copies of each
-C++ source are held byte-identical.
+copied C++ source are held byte-identical (`csrc/seeded_normal.cpp` is
+the port's own, held to NumPy by `tests/test_torch_seeded_normal.py`).
 """
 
 import pathlib
@@ -26,17 +27,24 @@ needs_native = pytest.mark.skipif(
     not native.available(), reason="no C++ compiler: host library not built")
 
 
-@pytest.mark.parametrize("name", build.HOST_SOURCES)
+# the host sources copied from `native/`
+COPIED_SOURCES = ("gaussianize.cpp", "loader.cpp")
+
+
+@pytest.mark.parametrize("name", COPIED_SOURCES)
 def test_cpp_copies_are_byte_identical(name):
     ours = (build.CSRC_DIR / name).read_bytes()
     assert ours == (ROOT / "native" / name).read_bytes()
 
 
 def test_host_library_is_the_ports_own_build():
-    """Built with the Makefile's flags into _build/ under a hashed name;
-    the library under native/ is never the one loaded."""
+    """Built with the Makefile's flags, no contraction into fused
+    multiply-adds and threads, into _build/ under a hashed name; the
+    library under native/ is never the one loaded."""
     assert set(build.HOST_FLAGS) == {"-O3", "-fPIC", "-shared",
-                                     "-std=c++17"}
+                                     "-std=c++17", "-ffp-contract=off",
+                                     "-pthread"}
+    assert set(COPIED_SOURCES) < set(build.HOST_SOURCES)
     path = build._host_library_path()
     assert path.parent == build.BUILD_DIR
     assert path.name.startswith("liblcx_host_") and path.suffix == ".so"

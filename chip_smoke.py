@@ -9,12 +9,13 @@ phase prints one JSON line; any failed phase raises, so the script exits
 non-zero and does not print the final line.
 
 1. env       card name and power limit, torch/CUDA versions; TF32 off.
-2. build     compiles linearcorex_tpu_torch/csrc/ns_chain.cu for sm_90a
-             (nvcc) and the host library from csrc/*.cpp (g++), both
-             started together; ptxas must report 0 spill bytes for every
-             kernel, and the library must hold HGMMA (wgmma) instructions
-             (cuobjdump -sass), so the products demonstrably run on the
-             tensor cores.
+2. build     compiles linearcorex_tpu_torch/csrc/ns_chain.cu and
+             csrc/sigma_gemm.cu for sm_90a (nvcc) and the host library
+             from csrc/*.cpp (g++), all started together; ptxas must
+             report 0 spill bytes for every kernel, and each kernel
+             library must hold HGMMA (wgmma) instructions (cuobjdump
+             -sass), so the products demonstrably run on the tensor
+             cores.
    native    the host library is available; its ndtri against
              torch.special.ndtri (float64) to 1e-12; a generated 2000 x 64
              CSV read by CsvReader equal to the pure-Python reader.
@@ -277,10 +278,10 @@ non-zero and does not print the final line.
              4096 rows against the second. (e) warmup_sweep, then
              pick_n_hidden at the selection size (max_iter=200 a stage, a
              cut depth), first against second.
-             Gates: (a) builds the kernel and the host library (the
+             Gates: (a) builds the two kernels and the host library (the
              seeded draw of the start) inside its first fit and (b)
-             builds nothing; (c)'s warmup builds both and launches the
-             kernel,
+             builds nothing; (c)'s warmup builds all three and launches
+             the chain kernel,
              nothing is built and no file appears after it, and its first
              fit is (b)'s first fit bit for bit (W, TC, iterations per
              stage), its save_corex file (b)'s array for array; (e)'s
@@ -308,7 +309,10 @@ non-zero and does not print the final line.
              bound (3xTF32 on the tensor cores, and on the CUDA cores) and
              the time torch.matmul takes for its two products alone in
              full float32 (products_library_ms: timed only, never called
-             by the port). The lane kernel at (4, 10000, 512) against four
+             by the port). The Σ-product kernel at (p, n) = (10000, 512)
+             against its twin (cuBLAS's float32 product) and cuBLAS's
+             TF32 product, beside its bounds (timing_sigma_gemm). The
+             lane kernel at (4, 10000, 512) against four
              one-lane launches and against the batched twin, with the same
              bounds and yardstick; fit_core on 4 lanes (float32 and int8,
              100 iterations) against the one-lane fit_core. The kernel
@@ -487,6 +491,43 @@ def chain_products_ms(cxy, ry, sqz, rho_clip):
         return time_ms(lambda: (rr @ ry, rra.mT @ rr), inner=20)
 
 
+def sigma_gemm_timing(gram, w0):
+    """The Σ-product kernel at the north-star shape, C = Σ·W0ᵀ (p = P,
+    n = M, W0ᵀ a strided view as the Gram path hands it over), in turns
+    with its plain twin (torch.matmul at full float32, which is also
+    cuBLAS's float32 product) and cuBLAS's TF32 product (the library
+    yardsticks): ms per call, min of 3 x 20 after a warm-up; the bounds
+    at 495 TFLOP/s (one TF32 pass), three times that (3xTF32) and 67
+    TFLOP/s (CUDA cores); each product's error against float64."""
+    import torch
+    from linearcorex_tpu_torch.ops.cuda_moments import (sigma_gemm,
+                                                        sigma_gemm_reference)
+    v = w0.T
+
+    def tf32():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return gram @ v
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {"kernel": lambda: sigma_gemm(gram, v),
+            "plain": lambda: sigma_gemm_reference(gram, v), "tf32": tf32}
+    ms = dict.fromkeys(runs, float("inf"))
+    for which in ("plain", "tf32", "kernel", "kernel", "tf32", "plain"):
+        ms[which] = min(ms[which], time_ms(runs[which], inner=20))
+    want = gram.double() @ v.double()
+    err = {k: float((fn().double() - want).abs().max() / want.abs().max())
+           for k, fn in runs.items()}
+    flops = 2.0 * P * P * M
+    return dict(p=P, n=M, kernel_ms=ms["kernel"], plain_ms=ms["plain"],
+                library_ms=dict(cublas_float32=ms["plain"],
+                                cublas_tf32=ms["tf32"]),
+                bound_ms=flops / 495e9, bound_3xtf32_ms=3 * flops / 495e9,
+                bound_cuda_core_ms=flops / 67e9, bound_by="operations",
+                roofline_pct=100 * flops / 495e9 / ms["kernel"],
+                rel_err_vs_float64=err)
+
+
 def chain_pass_ms(args, launches=10):
     """Device ms per launch of each pass of the chain kernel on `args`
     (torch.profiler over `launches` launches after a warm-up), by kernel
@@ -534,8 +575,8 @@ def build_checks(rec):
                           capture_output=True, text=True, check=True,
                           timeout=300).stdout
     hgmma = sum("HGMMA" in ln for ln in sass.splitlines())
-    check(hgmma > 0, "the built library holds no HGMMA instruction: the "
-          "chain's products do not run on the tensor cores")
+    check(hgmma > 0, f"{rec['path']} holds no HGMMA instruction: its "
+          f"products do not run on the tensor cores")
     return ptxas, hgmma
 
 
@@ -3298,10 +3339,13 @@ def warmup_phase(card):
     def compiled(rec):
         return sorted(c["what"] for c in rec["compiles"])
 
-    # what a cold seeded fit builds, and a warmup: the chain kernel, and
-    # the host library of the start's seeded draw (`ops.seeded`)
+    # what a cold seeded fit builds, and a warmup: the chain kernel, the
+    # Σ-product kernel (the Gram path's float32 products, the int8 fit's
+    # final moments) and the host library of the start's seeded draw
+    # (`ops.seeded`)
     from linearcorex_tpu_torch.utils import build
-    builds = sorted(["ns_chain.cu", " + ".join(build.HOST_SOURCES)])
+    builds = sorted(["ns_chain.cu", "sigma_gemm.cu",
+                     " + ".join(build.HOST_SOURCES)])
 
     def seconds(rec, what):
         return sum(c["seconds"] for c in rec["compiles"]
@@ -3945,16 +3989,23 @@ def main():
     oracle = OracleChild(card, x=x,
                          deadline=STARTED + SCRIPT_SECONDS - AFTER_JOIN_SECONDS)
 
-    # 2. build: the kernel (nvcc) and the host library (g++) together
+    # 2. build: the kernels (nvcc) and the host library (g++) together
     from concurrent.futures import ThreadPoolExecutor
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         kernel_build = pool.submit(build.build, "ns_chain", force=True)
+        sigma_build = pool.submit(build.build, "sigma_gemm", force=True)
         host_build = pool.submit(build.build_host, force=True)
-        rec, host_rec = kernel_build.result(), host_build.result()
+        rec, sigma_rec, host_rec = (kernel_build.result(),
+                                    sigma_build.result(),
+                                    host_build.result())
     build.load("ns_chain")
+    build.load("sigma_gemm")
     ptxas, hgmma = build_checks(rec)
+    sigma_ptxas, sigma_hgmma = build_checks(sigma_rec)
     emit("build", seconds=rec["seconds"], library=rec["path"],
          spill_bytes=0, hgmma_instructions=hgmma, ptxas=ptxas,
+         sigma_seconds=sigma_rec["seconds"], sigma_library=sigma_rec["path"],
+         sigma_hgmma_instructions=sigma_hgmma, sigma_ptxas=sigma_ptxas,
          host_seconds=host_rec["seconds"], host_library=host_rec["path"])
 
     # 3. kernels
@@ -4182,6 +4233,9 @@ def main():
          bound_ms=bound_ms, bound_cuda_core_ms=bound_cc_ms,
          bound_by="operations", products_library_ms=products_ms,
          passes_ms=chain_pass_ms((cxy, ry, sqz)), card=card)
+
+    emit("timing_sigma_gemm", **sigma_gemm_timing(operands["float32"], w0),
+         card=card)
 
     lanes_in = [chain_inputs(P, M, seed=1 + lane) for lane in range(LANES)]
     cxy4, ry4, sqz4 = (torch.stack(t) for t in zip(*lanes_in))

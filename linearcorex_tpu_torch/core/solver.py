@@ -491,8 +491,9 @@ def fit_core(obj_grad: ObjGrad, w0: torch.Tensor, cfg: CorexConfig,
         masked = sum(k * n - i for n, i in zip(chunks, lockstep))
         counts.masked += masked
         if loop.tally is not None:
-            # every body of a chunk launches the kernel alike
-            counts.masked_launches += masked * sum(loop.tally.values()) // k
+            # every body of a chunk launches the chain kernel alike
+            counts.masked_launches += masked * sum(
+                loop.tally[key] for key in cuda_moments.CHAIN_KEYS) // k
         eps_schedule = eps_all if not lanes else \
             eps_all.expand(lanes + (n_stages,)).contiguous()
         diag = FitDiagnostics(iters_per_stage=iters, tc_per_stage=out_tc,

@@ -1,5 +1,6 @@
-"""The fused non-overlap moment chain: a hand-written CUDA kernel and its
-plain PyTorch twin.
+"""The port's hand-written CUDA kernels and their plain PyTorch twins: the
+fused non-overlap moment chain (`ns_chain`) and the Gram path's Σ product
+(`sigma_gemm`).
 
 Counterpart of `linearcorex_tpu/ops/pallas_moments.py`. `ns_chain` runs
 the whole elementwise moment chain and gradient algebra of the non-overlap
@@ -20,10 +21,16 @@ plain twin. Lane l's kernel outputs are bitwise those of a one-lane
 launch on lane l's inputs. Launches through the lane entry are counted
 in `ns_chain.lane_launches`, one-lane launches in `ns_chain.launches`.
 
+`sigma_gemm(sigma, v)` computes Σ·v for a whole float32 Σ (p, p) and a
+float32 v (p, n) in 3xTF32 on the tensor cores (`csrc/sigma_gemm.cu`),
+held to cuBLAS's full-float32 accuracy; its launches are counted in
+`sigma_gemm.launches`. On a CPU tensor it returns `sigma_gemm_reference`,
+`torch.matmul` at full float32.
+
 CUDA graphs: a call inside `counting_capture()` is recorded into the
 graph being captured, not run, so it adds to the scope's tally instead of
 the counters; the solver adds the tally to the counters at every replay
-(`count_replay`). So the counters count the kernel's runs, replayed or
+(`count_replay`). So the counters count the kernels' runs, replayed or
 not.
 """
 
@@ -36,7 +43,8 @@ import functools
 import torch
 
 __all__ = ["ns_chain", "ns_chain_reference", "chain_supported",
-           "counting_capture", "count_replay"]
+           "sigma_gemm", "sigma_gemm_reference", "counting_capture",
+           "count_replay", "CHAIN_KEYS"]
 
 # The kernel's tiles do not depend on m, but its scratch holds the m x m
 # partials of H over a few ranges of p; this caps that at ~270 MB.
@@ -217,12 +225,17 @@ def _check_lanes(lib, k, p, m):
 _CAPTURES: list = []
 
 
+# the tally's keys of the chain kernel's launches
+CHAIN_KEYS = ("launches", "lane_launches")
+
+
 @contextlib.contextmanager
 def counting_capture():
-    """The scope of a CUDA graph capture: each `ns_chain` launch inside is
-    recorded into the graph, not run, and adds one to the yielded tally
-    ({'launches', 'lane_launches'}) instead of the counters."""
-    tally = {"launches": 0, "lane_launches": 0}
+    """The scope of a CUDA graph capture: each `ns_chain` or `sigma_gemm`
+    launch inside is recorded into the graph, not run, and adds one to the
+    yielded tally ({'launches', 'lane_launches'} of the chain, CHAIN_KEYS,
+    and 'sigma_gemm') instead of the counters."""
+    tally = dict.fromkeys(CHAIN_KEYS + ("sigma_gemm",), 0)
     _CAPTURES.append(tally)
     try:
         yield tally
@@ -235,7 +248,93 @@ def count_replay(tally: dict) -> None:
     launches run again, so each adds to the counters."""
     ns_chain.launches += tally["launches"]
     ns_chain.lane_launches += tally["lane_launches"]
+    sigma_gemm.launches += tally["sigma_gemm"]
+
+
+def sigma_gemm_reference(sigma: torch.Tensor, v: torch.Tensor):
+    """Plain PyTorch version of `sigma_gemm` (the CPU path and the kernel's
+    yardstick): `torch.matmul` at full float32."""
+    from linearcorex_tpu_torch.ops.moments import full_f32_matmul
+    with full_f32_matmul():
+        return torch.matmul(sigma, v)
+
+
+@functools.cache
+def _sigma_kernel():
+    """The built Σ-product library with its C signatures declared (once
+    per process)."""
+    from linearcorex_tpu_torch.utils import build
+    lib = build.load("sigma_gemm")
+    lib.lcx_sigma_gemm_workspace.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.lcx_sigma_gemm_workspace.restype = ctypes.c_longlong
+    lib.lcx_sigma_gemm.argtypes = (
+        [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p,
+         ctypes.c_longlong, ctypes.c_longlong, ctypes.c_int]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p])
+    lib.lcx_sigma_gemm.restype = ctypes.c_int
+    lib.lcx_sigma_gemm_error_string.argtypes = [ctypes.c_int]
+    lib.lcx_sigma_gemm_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def sigma_gemm(sigma: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """C = Σ·v (p, n) for Σ (p, p) and v (p, n), both float32; v may have
+    any strides (a transposed W is read as it lies).
+
+    On a CUDA tensor: the kernel of `csrc/sigma_gemm.cu`, 3xTF32 on the
+    tensor cores with each 32-deep stage summed apart (its header says
+    how), or a ValueError; one launch adds one to `sigma_gemm.launches`.
+    A Σ whose rows are not 16-byte aligned (p not a multiple of 4, or a
+    strided view) is first copied into rows that are, a TMA rule. On a CPU
+    tensor: `sigma_gemm_reference`, and no count."""
+    if sigma.device.type == "cpu":
+        return sigma_gemm_reference(sigma, v)
+    if sigma.device.type != "cuda":
+        raise ValueError(f"sigma_gemm runs on CUDA or CPU tensors, got "
+                         f"{sigma.device}")
+    if sigma.ndim != 2 or sigma.shape[0] != sigma.shape[1]:
+        raise ValueError(f"sigma_gemm: sigma must be square (p, p), got "
+                         f"shape {tuple(sigma.shape)}")
+    p = sigma.shape[0]
+    if v.ndim != 2 or v.shape[0] != p:
+        raise ValueError(f"sigma_gemm: v must have shape ({p}, n), got "
+                         f"{tuple(v.shape)}")
+    for name, t in (("sigma", sigma), ("v", v)):
+        if t.dtype != torch.float32:
+            raise ValueError(f"sigma_gemm: {name} must be float32, got "
+                             f"{t.dtype}")
+        if t.device != sigma.device:
+            raise ValueError(f"sigma_gemm: {name} is on {t.device}, sigma "
+                             f"on {sigma.device}")
+    n = v.shape[1]
+    dev = sigma.device
+    if not (sigma.stride(1) == 1 and sigma.stride(0) >= p
+            and sigma.stride(0) % 4 == 0 and sigma.data_ptr() % 16 == 0):
+        rows = torch.empty((p, -(-p // 4) * 4), dtype=torch.float32,
+                           device=dev)
+        rows[:, :p] = sigma
+        sigma = rows
+    lib = _sigma_kernel()
+    out = torch.empty((p, n), dtype=torch.float32, device=dev)
+    work = torch.empty((lib.lcx_sigma_gemm_workspace(p, n),),
+                       dtype=torch.float32, device=dev)
+    index = dev.index if dev.index is not None else \
+        torch.cuda.current_device()
+    rc = lib.lcx_sigma_gemm(
+        sigma.data_ptr(), sigma.stride(0), p, v.data_ptr(), v.stride(0),
+        v.stride(1), n, out.data_ptr(), work.data_ptr(), index,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"sigma_gemm kernel launch failed: CUDA error {rc} "
+            f"({lib.lcx_sigma_gemm_error_string(rc).decode()})")
+    if _CAPTURES:
+        _CAPTURES[-1]["sigma_gemm"] += 1
+    else:
+        sigma_gemm.launches += 1
+    return out
 
 
 ns_chain.launches = 0
 ns_chain.lane_launches = 0
+sigma_gemm.launches = 0

@@ -6,8 +6,14 @@ Port of `linearcorex_tpu/ops/moments.py`:
   is two skinny GEMMs. The 'gram' path builds Σ = XᵀX/n once and applies
   it with one Σ·Wᵀ GEMM per iteration.
 - Matmuls keep the JAX package's accumulation rule (`_mm`): at least
-  float32, and float64 stays float64. Float32 matmuls run at full float32,
-  never TF32 (`full_f32_matmul`).
+  float32, and float64 stays float64. Float32 matmuls run at float32
+  accuracy under torch's "highest" precision (`full_f32_matmul`, and a
+  fit's scope under matmul_precision 'default'): cuBLAS's float32 GEMM,
+  except the whole-Σ product on a card (`_sigma_mm`), which runs 3xTF32
+  on the tensor cores with each 32-deep stage summed apart
+  (`cuda_moments.sigma_gemm`), held to cuBLAS float32's accuracy. Under
+  'high' every float32 product, that one included, is one TF32 pass on
+  cuBLAS.
 - The half-precision compute dtypes (`dtype='bfloat16'` or 'float16')
   run every function here in that dtype, as the JAX package's XLA chain
   does: a product accumulates in float32 and is rounded once, and the
@@ -105,7 +111,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from linearcorex_tpu_torch.ops.cuda_moments import ns_chain
+from linearcorex_tpu_torch.ops.cuda_moments import ns_chain, sigma_gemm
 from linearcorex_tpu_torch.parallel.collectives import (all_gather_dim,
                                                         all_reduce,
                                                         reduce_scatter_dim,
@@ -670,11 +676,26 @@ def _lane_rows(fn, a):
     return fn(a.reshape(k * m, p)).reshape(k, m, -1)
 
 
+def _sigma_mm(g, v):
+    """Σ·v: the hand-written 3xTF32 kernel (`sigma_gemm`) where Σ is whole
+    (square: a `var` row block of two or more ranks is not), Σ and v are
+    float32 CUDA tensors and torch's float32 matmul precision is "highest"
+    (the fit's scope under matmul_precision 'default', 'highest' or
+    'float32', and `full_f32_matmul`); `_mm` everywhere else (the CPU,
+    float64, half dtypes, a split Σ, 'high' and 'medium')."""
+    if (g.is_cuda and g.dtype == _F32 and v.dtype == _F32
+            and g.shape[0] == g.shape[1]
+            and torch.get_float32_matmul_precision() == "highest"):
+        return sigma_gemm(g, v)
+    return _mm(g, v)
+
+
 def _gram_t(g, var):
     """v (p_loc, k) ↦ Σ[I, :]·v for a Gram block over `var` (v's rows
-    gathered whole), or Σ·v for a whole Σ."""
+    gathered whole), or Σ·v for a whole Σ, through `_sigma_mm`. The bf16
+    operand mode passes its own `mm`."""
     sp = Split(var=var)
-    return lambda v, mm=_mm: mm(g, sp.all_vars(v))
+    return lambda v, mm=_sigma_mm: mm(g, sp.all_vars(v))
 
 
 def _gram_rows(g, var):

@@ -150,7 +150,12 @@ def test_environment_variable_moves_the_directory(fresh_cache, tmp_path):
 
 def test_a_fit_decides_the_directory(fresh_cache, tmp_path):
     """Every fit-shaped entry point calls ensure_compile_cache; a fit that
-    builds nothing leaves the file system alone."""
+    builds nothing leaves the file system alone. (The seeded start's host
+    library is loaded first, as an earlier fit of the process leaves it,
+    so that the result does not depend on which files ran before it.)"""
+    from linearcorex_tpu_torch.ops import seeded
+    seeded.load()
+    fresh_cache.setattr(CC, "_cache_dir", None)
     fresh_cache.setenv("LINEARCOREX_TPU_CACHE_DIR", str(tmp_path / "fit"))
     lct.Corex(**dict(KW, max_iter=5)).fit(block_data())
     assert CC._cache_dir == str(tmp_path / "fit")

@@ -7,14 +7,18 @@ the oracle, `linearcorex_tpu_torch.oracle`):
 
     python -m pytest -o addopts="" --noconftest -q tests/test_torch_cuda.py
 
-The kernel is held to its plain PyTorch twin at 1e-5 of the largest
+The chain kernel is held to its plain PyTorch twin at 1e-5 of the largest
 magnitude (the JAX package's kernel-test bound) and must give bitwise-equal
-outputs on a repeated launch. The operand modes are held to the same calls
+outputs on a repeated launch. The Σ-product kernel is held to float64: its
+error must be at most twice cuBLAS's full-float32 product's on the same
+inputs, and a repeated launch or a graph replay bitwise equal. The operand modes are held to the same calls
 on the CPU: int8 products bitwise, their scaled results to 1e-6 relative;
 the bf16 product must come back in float32, within 1e-5 of the float32
 product of the bf16-rounded operands (a bf16-rounded output misses by
 ~1e-3).
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -680,10 +684,10 @@ def test_matmul_precision_high_runs_tf32_on_the_card():
 
 @pytest.mark.cuda
 def test_warmup_builds_so_that_the_fit_builds_nothing(tmp_path, monkeypatch):
-    """On a fresh LINEARCOREX_TPU_CACHE_DIR, Corex.warmup builds the kernel
-    and the host library of the seeded start there and launches the
-    kernel; the fit after it builds nothing, adds no file, runs the
-    kernel, and is the unwarmed fit bit for bit."""
+    """On a fresh LINEARCOREX_TPU_CACHE_DIR, Corex.warmup builds the chain
+    kernel, the Σ-product kernel and the host library of the seeded start
+    there and launches both kernels; the fit after it builds nothing, adds
+    no file, runs the kernels, and is the unwarmed fit bit for bit."""
     _need_cuda()
     from linearcorex_tpu_torch.ops import seeded
     from linearcorex_tpu_torch.utils import compile_cache as CC
@@ -691,7 +695,8 @@ def test_warmup_builds_so_that_the_fit_builds_nothing(tmp_path, monkeypatch):
     monkeypatch.setattr(CC, "_cache_dir", None)
     monkeypatch.setenv("LINEARCOREX_TPU_CACHE_DIR", str(tmp_path))
     monkeypatch.delenv("LINEARCOREX_TPU_NO_COMPILE_CACHE", raising=False)
-    CM._kernel.cache_clear()       # load the library from the new directory
+    CM._kernel.cache_clear()       # load the libraries from the new directory
+    CM._sigma_kernel.cache_clear()
     # and the host library, whatever an earlier test loaded
     monkeypatch.setattr(native, "_lib", None)
     monkeypatch.setattr(seeded, "_lib", None)
@@ -699,26 +704,30 @@ def test_warmup_builds_so_that_the_fit_builds_nothing(tmp_path, monkeypatch):
         gen = torch.Generator(device="cuda").manual_seed(0)
         x = torch.randn((2000, 512), generator=gen, device="cuda")
         kw = dict(n_hidden=32, seed=0, max_iter=100, device="cuda")
-        done, launches = len(build.COMPILES), CM.ns_chain.launches
+        done = len(build.COMPILES)
+        launches = CM.ns_chain.launches, CM.sigma_gemm.launches
         model = lct.Corex(**kw).warmup(*x.shape)
         torch.cuda.synchronize()
         assert model.ws is None
         assert sorted(c["what"] for c in build.COMPILES[done:]) == sorted(
-            ["ns_chain.cu", " + ".join(build.HOST_SOURCES)])
+            ["ns_chain.cu", "sigma_gemm.cu", " + ".join(build.HOST_SOURCES)])
         assert all(c["path"].startswith(str(tmp_path))
                    for c in build.COMPILES[done:])
-        assert CM.ns_chain.launches > launches
+        assert CM.ns_chain.launches > launches[0]
+        assert CM.sigma_gemm.launches > launches[1]
         files = sorted(tmp_path.iterdir())
-        launches = CM.ns_chain.launches
+        launches = CM.ns_chain.launches, CM.sigma_gemm.launches
         model.fit(x)
         torch.cuda.synchronize()
-        assert len(build.COMPILES) == done + 2
+        assert len(build.COMPILES) == done + 3
         assert sorted(tmp_path.iterdir()) == files
-        assert CM.ns_chain.launches > launches
+        assert CM.ns_chain.launches > launches[0]
+        assert CM.sigma_gemm.launches > launches[1]
         plain = lct.Corex(**kw).fit(x)
         assert torch.equal(model.ws, plain.ws) and model.tc == plain.tc
     finally:
         CM._kernel.cache_clear()
+        CM._sigma_kernel.cache_clear()
 
 
 @pytest.mark.cuda
@@ -1035,3 +1044,119 @@ def test_spans_and_kernels_share_one_clock(tmp_path):
         assert within(k["ts"], operand), k["name"]
     for k in replayed:
         assert within(k["ts"], solve), k["name"]
+
+
+# --- the Gram path's Σ product (csrc/sigma_gemm.cu) ------------------------
+
+def _rel_err(c, want):
+    return float((c.double() - want).abs().max() / want.abs().max())
+
+
+@functools.cache
+def _north_star_sigma():
+    """Σ of the north-star cell's data (portbench's generator, seed 0) as
+    the fit prepares it, and W of a short default fit on that data."""
+    from portbench import datagen
+    x = datagen.block_data(10000, 10000, 100, 0.9, 0.436, 0, "cuda")
+    model = lct.Corex(n_hidden=512, seed=0, max_iter=30, device="cuda")
+    sigma = model._prepare_fit(x)[0]
+    model.fit(x)
+    return sigma, model.ws
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("operand", ["fit_w", "random"])
+def test_sigma_gemm_as_exact_as_cublas_at_the_north_star(operand):
+    """At p = 10,000, n = 512, on the cell's Σ with a fit's Wᵀ (a strided
+    view, as the Gram path hands it over) or a random V: the kernel's
+    max|C − C₆₄| / max|C₆₄| is at most twice cuBLAS's full-float32
+    product's on the same inputs, and the product is launched once a
+    call."""
+    _need_cuda()
+    sigma, ws = _north_star_sigma()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    v = ws.T if operand == "fit_w" else torch.randn(
+        (10000, 512), generator=gen, device="cuda")
+    before = CM.sigma_gemm.launches
+    got = CM.sigma_gemm(sigma, v)
+    plain = CM.sigma_gemm_reference(sigma, v)
+    torch.cuda.synchronize()
+    assert CM.sigma_gemm.launches == before + 1
+    want = sigma.double() @ v.double()
+    assert _rel_err(got, want) <= 2 * _rel_err(plain, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p,m,lanes", [(999, 7, 1), (1030, 1030, 1),
+                                       (10000, 7, 1), (10000, 512, 4)])
+def test_sigma_gemm_ragged_and_lanes(p, m, lanes):
+    """Ragged p and n (Σ's rows copied into 16-byte rows at p = 999,
+    1030) and four restart lanes side by side (n = 2,048, `_lanes`'s
+    layout): within twice cuBLAS's float32 error of float64, and a second
+    launch bitwise the first."""
+    _need_cuda()
+    x = torch.from_numpy(_standardized(2 * p, p, seed=p)).to("cuda")
+    sigma = CM.sigma_gemm_reference(x.T, x) / (2 * p)
+    gen = torch.Generator(device="cuda").manual_seed(p + m)
+    ws = 0.1 * torch.randn((lanes, m, p), generator=gen, device="cuda")
+    handed = []
+    TM._lanes(lambda v: handed.append(v) or v,
+              ws.mT if lanes > 1 else ws[0].mT)
+    v = handed[0]
+    got = CM.sigma_gemm(sigma, v)
+    again = CM.sigma_gemm(sigma, v)
+    plain = CM.sigma_gemm_reference(sigma, v)
+    torch.cuda.synchronize()
+    want = sigma.double() @ v.double()
+    assert got.shape == (p, lanes * m)
+    assert _rel_err(got, want) <= 2 * _rel_err(plain, want)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+def test_sigma_gemm_replayed_is_bitwise_eager_and_counted():
+    """The product captured into a CUDA graph (under `counting_capture`,
+    as the solver captures its loop) replays bitwise the eager call; the
+    capture adds to the tally, not the counter, and each replay counted
+    by `count_replay` adds one launch; the chain's keys stay 0."""
+    _need_cuda()
+    sigma, ws = _north_star_sigma()
+    v = ws.T
+    eager = CM.sigma_gemm(sigma, v)
+    before = CM.sigma_gemm.launches
+    graph = torch.cuda.CUDAGraph()
+    with CM.counting_capture() as tally:
+        with torch.cuda.graph(graph):
+            out = CM.sigma_gemm(sigma, v)
+    assert CM.sigma_gemm.launches == before
+    assert tally == {"launches": 0, "lane_launches": 0, "sigma_gemm": 1}
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        CM.count_replay(tally)
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+    assert CM.sigma_gemm.launches == before + 2
+    graph.reset()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("precision,kernel", [("default", True),
+                                              ("high", False)])
+def test_default_fit_runs_the_sigma_kernel(precision, kernel):
+    """A default float32 Gram fit on the card runs its Σ products in the
+    kernel, every evaluation; under matmul_precision='high' they stay one
+    TF32 pass on cuBLAS and the kernel is never launched."""
+    _need_cuda()
+    x = _block_data(n=2000, p=512, m=8, seed=3)
+    before = CM.sigma_gemm.launches
+    TS.counts.reset()
+    c = lct.Corex(n_hidden=16, seed=0, max_iter=100,
+                  matmul_precision=precision, device="cuda").fit(x)
+    ran = CM.sigma_gemm.launches - before
+    assert np.isfinite(c.tc)
+    if kernel:
+        # one product a fixed-point evaluation, two a momentum one
+        assert ran >= TS.counts.first_evaluations + TS.counts.bodies
+    else:
+        assert ran == 0

@@ -378,15 +378,20 @@ def test_a_cpu_fit_reads_once_an_iteration(x):
 
 
 def test_captured_launches_count_at_every_replay():
-    before = (CM.ns_chain.launches, CM.ns_chain.lane_launches)
+    before = (CM.ns_chain.launches, CM.ns_chain.lane_launches,
+              CM.sigma_gemm.launches)
     with CM.counting_capture() as outer:
         with CM.counting_capture() as inner:
             inner["launches"] += 5
         outer["lane_launches"] += 2
-    assert (CM.ns_chain.launches, CM.ns_chain.lane_launches) == before
+        outer["sigma_gemm"] += 4
+    assert (CM.ns_chain.launches, CM.ns_chain.lane_launches,
+            CM.sigma_gemm.launches) == before
     for _ in range(3):
         CM.count_replay(inner)
         CM.count_replay(outer)
     assert CM.ns_chain.launches == before[0] + 15
     assert CM.ns_chain.lane_launches == before[1] + 6
-    CM.ns_chain.launches, CM.ns_chain.lane_launches = before
+    assert CM.sigma_gemm.launches == before[2] + 12
+    CM.ns_chain.launches, CM.ns_chain.lane_launches, \
+        CM.sigma_gemm.launches = before
